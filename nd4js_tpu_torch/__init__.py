@@ -1,0 +1,20 @@
+"""nd4js_tpu_torch — the PyTorch + CUDA port of nd4js_tpu.
+
+A second package beside the JAX one, with the same public surface and
+conventions, ported slice by slice (ROADMAP.md). Plain tensor code is
+PyTorch; every Pallas kernel of the JAX package becomes a CUDA kernel
+written for Hopper (``csrc/``), built with nvcc on first use and bound
+with ctypes (``ops/_build.py``). Entry points run on the CUDA device
+unless they are given CPU tensors or ``device="cpu"``; on the CPU each
+kernel's plain PyTorch version runs in its place.
+
+Ported so far: batched Householder QR and QR least squares
+(``la.qr_decomp``, ``la.qr_decomp_full``, ``la.qr_lstsq``,
+``la.qr_solve``, ``la.qr_lstsq_fused``) with the kernels ``house_panel``
+and ``qr_gesv``.
+"""
+from . import config
+from . import la
+from . import entry
+
+__version__ = "0.1.0"

@@ -1,0 +1,41 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+The library has no learned weights: its state is the input arrays and a
+Householder factorisation, ``R_packed`` plus the list of ``(k, V, T)``
+panels that ``la.qr._qr_factor_batched`` returns in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import config
+
+__all__ = ["as_tensor", "from_numpy", "vts_from_numpy"]
+
+
+def as_tensor(a, device=None) -> torch.Tensor:
+    """A tensor for an entry point. A tensor keeps its device unless
+    ``device`` is given; anything else is copied to ``device`` or, without
+    one, to ``config.default_device``. Dtypes are kept (integers are
+    promoted by the routines themselves)."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
+    return torch.tensor(np.asarray(a), device=(
+        config.default_device if device is None else device))
+
+
+def from_numpy(arr, device=None) -> torch.Tensor:
+    """numpy array → tensor on ``device`` (default ``config.default_device``)
+    with the port's dtype rule: integers and bools become float64, floats
+    keep their precision."""
+    t = as_tensor(np.asarray(arr), device)
+    return t.to(config.default_float_for(t.dtype))
+
+
+def vts_from_numpy(vts, device=None):
+    """A ``[(k, V, T), ...]`` factorisation given as numpy arrays (e.g.
+    ``np.asarray`` of the JAX package's ``_qr_factor_batched`` output)
+    → the port's form, ``[(int k, tensor V, tensor T), ...]``."""
+    return [(int(k), from_numpy(V, device), from_numpy(T, device))
+            for k, V, T in vts]

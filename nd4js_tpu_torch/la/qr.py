@@ -1,0 +1,195 @@
+"""QR decomposition and least squares: blocked Householder with
+compact-WY aggregation, the counterpart of ``nd4js_tpu/la/qr.py``'s
+Householder path.
+
+    per panel of width b:
+      R_panel, V, taus = house_panel(A[k:, k:k+b])         (CUDA kernel)
+      T (b×b upper)     = (diag(1/τ) + striu(VᵀV))⁻¹        (GEMMs)
+      A[k:, k+b:]      -= V·Tᵀ·Vᵀ·A[k:, k+b:]              (3 GEMMs)
+    Q = (I−V₁T₁V₁ᵀ)···(I−VₚTₚVₚᵀ) applied to I in reverse   (GEMMs)
+
+Square systems up to 256² in ``qr_lstsq_fused`` are one launch of the
+``qr_gesv`` kernel. The GEMMs are ``torch.matmul`` at full precision.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import config
+from ..config import default_float_for
+from ..convert import as_tensor
+from ..core.batch import batched
+from ..core.debug import dassert, dcheck_finite
+from ..core.mm import mm, mt
+from ..ops.house_panel import house_panel
+from ..ops.house_stripe import qr_gesv
+from .tri import _tril_inv_core, _triu_solve_blocked, triu_solve
+
+__all__ = ["qr_decomp", "qr_decomp_full", "qr_lstsq", "qr_solve",
+           "qr_lstsq_fused"]
+
+_PANEL = 128
+
+
+def _form_t_batched(V: torch.Tensor, taus: torch.Tensor):
+    """Compact-WY T for batched reflector stores (..., M, b) by the
+    closed form T = (diag(1/τ) + striu(VᵀV))⁻¹, for the forward product
+    H_0···H_{b−1} = I − V·T·Vᵀ. Null reflectors (τ = 0) are masked out
+    of V, which zeroes their T coupling.
+
+    Returns (V_masked, T); use V_masked for all V·T·Vᵀ applications.
+    """
+    b = V.shape[-1]
+    live = taus != 0
+    V = V * live[..., None, :].to(V.dtype)
+    W = mm(mt(V), V)
+    inv_tau = torch.where(live, 1.0 / torch.where(live, taus,
+                                                  torch.ones_like(taus)),
+                          torch.ones_like(taus))
+    eye = torch.eye(b, dtype=V.dtype, device=V.device)
+    U = torch.triu(W, 1) + inv_tau[..., None, :] * eye
+    # upper-triangular inverse via the reversed lower-triangular one
+    T = _tril_inv_core(U.flip(-2, -1)).flip(-2, -1)
+    return V, T
+
+
+def _qr_factor_batched(a3: torch.Tensor, panel: int = _PANEL, kmax=None):
+    """Blocked Householder factorisation of (Bn, M, N) with the
+    ``house_panel`` kernel. Returns (R_packed, [(k, V, T), ...]).
+    ``kmax`` limits the factored columns (trailing columns are still
+    transformed: the seam of ``qr_lstsq_fused``). Works in place on a
+    copy of ``a3``."""
+    a3 = a3.clone()
+    Bn, M, N = a3.shape
+    K = min(M, N) if kmax is None else kmax
+    vts = []
+    for k in range(0, K, panel):
+        b = min(panel, K - k)
+        rpan, V, taus = house_panel(a3[:, k:, k:k + b].contiguous())
+        V, T = _form_t_batched(V, taus)
+        vts.append((k, V, T))
+        a3[:, k:, k:k + b] = rpan
+        if k + b < N:
+            trail = a3[:, k:, k + b:]
+            trail -= mm(V, mm(mt(T), mm(mt(V), trail)))
+    return a3, vts
+
+
+def _apply_q_batched(vts, Bmat: torch.Tensor, transpose: bool = False):
+    """Q·B (or Qᵀ·B) for Q = Π_i (I − V_i·T_i·V_iᵀ): panels applied in
+    reverse for Q, forward for Qᵀ. Works in place on a copy of B."""
+    Bmat = Bmat.clone()
+    order = vts if transpose else list(reversed(vts))
+    for k, V, T in order:
+        sub = Bmat[:, k:, :]
+        w = mm(mt(V), sub)
+        w = mm(mt(T), w) if transpose else mm(T, w)
+        sub -= mm(V, w)
+    return Bmat
+
+
+def _qr_house_flat(a3: torch.Tensor, economic: bool):
+    """Householder QR of a flat (B, M, N) batch -> (Q3, R3)."""
+    Bn, M, N = a3.shape
+    K = min(M, N)
+    r, vts = _qr_factor_batched(a3)
+    ncols = K if economic else M
+    eye = torch.eye(M, ncols, dtype=a3.dtype, device=a3.device)
+    q = _apply_q_batched(vts, eye.expand(Bn, M, ncols))
+    r = torch.triu(r[:, :K] if economic else r)
+    return q, r
+
+
+def _qr_public(a, economic: bool, method: str, device):
+    a = as_tensor(a, device)
+    a = a.to(default_float_for(a.dtype))
+    if a.ndim < 2:
+        raise ValueError("qr_decomp expects ndim >= 2")
+    if method in ("cholqr2", "auto"):
+        raise NotImplementedError(
+            f"qr method {method!r} needs la/cholesky.py and is not ported "
+            "yet (ROADMAP.md, modules to port, item 4)")
+    if method != "householder":
+        raise ValueError(f"unknown method {method!r}")
+    lead = a.shape[:-2]
+    M, N = a.shape[-2:]
+    a3 = a.reshape((max(1, math.prod(lead)), M, N))
+    q, r = _qr_house_flat(a3, economic)
+    return (q.reshape(lead + q.shape[-2:]),
+            r.reshape(lead + (r.shape[-2], N)))
+
+
+def _qr_debug_guard(q, r):
+    """debug_checks guards: finite outputs and an orthogonality check."""
+    if not config.debug_checks:
+        return
+    dcheck_finite((q, r), "qr_decomp (q, r)")
+    ncols = q.shape[-1]
+    eye = torch.eye(ncols, dtype=q.dtype, device=q.device)
+    defect = (mm(mt(q), q) - eye).abs().max()
+    tol = 64 * torch.finfo(q.dtype).eps * max(q.shape[-2], ncols)
+    dassert(defect <= tol, "qr_decomp: Q orthogonality defect")
+
+
+def qr_decomp(a, method: str = "householder", device=None):
+    """Economic QR: A = Q·R, Q (..., M, K), R (..., K, N), K = min(M, N).
+    Batched over leading dims. ``method`` is 'householder'; 'cholqr2'
+    and 'auto' are not ported yet. An array-like ``a`` goes to
+    ``device`` (default ``config.default_device``)."""
+    q, r = _qr_public(a, economic=True, method=method, device=device)
+    _qr_debug_guard(q, r)
+    return q, r
+
+
+def qr_decomp_full(a, method: str = "householder", device=None):
+    """Full QR: Q (..., M, M), R (..., M, N)."""
+    return _qr_public(a, economic=False, method=method, device=device)
+
+
+def qr_lstsq(q, r, y, device=None):
+    """Least-squares solve from a QR factorisation: x = R⁻¹·Qᵀ·y.
+    Accepts economic or full Q/R; for full, only the leading K
+    columns/rows take part. Leading dims broadcast."""
+    q, r, y = (as_tensor(t, device) for t in (q, r, y))
+    k = min(r.shape[-2], r.shape[-1])
+
+    @batched((2, 2, 2))
+    def _go(q, r, y):
+        qty = mm(mt(q[..., :k]), y.to(q.dtype))
+        return triu_solve.core(r[..., :k, :k], qty, method="block")
+
+    return _go(q, r, y)
+
+
+def qr_solve(q, r, y, device=None):
+    """Exact-solve alias of :func:`qr_lstsq` for square systems."""
+    return qr_lstsq(q, r, y, device=device)
+
+
+def qr_lstsq_fused(a, y, device=None):
+    """Least-squares solve x = argmin‖A·x − y‖ without forming Q: the
+    RHS rides through the Householder factorisation as appended columns,
+    then one blocked triangular solve. Square systems up to 256² are one
+    launch of the ``qr_gesv`` kernel. Requires M ≥ N; batched over
+    leading dims."""
+    a, y = as_tensor(a, device), as_tensor(y, device)
+    a = a.to(default_float_for(a.dtype))
+    y = y.to(a.dtype)
+    M, N = a.shape[-2:]
+    if M < N:
+        raise ValueError("qr_lstsq_fused: under-determined systems not "
+                         "supported; use rrqr_lstsq or urv_lstsq")
+    L = y.shape[-1]
+    lead = tuple(torch.broadcast_shapes(a.shape[:-2], y.shape[:-2]))
+    Bn = max(1, math.prod(lead))
+    a = a.expand(lead + (M, N)).reshape((Bn, M, N))
+    y = y.expand(lead + (M, L)).reshape((Bn, M, L))
+    if M == N and N <= 256:
+        x = qr_gesv(a.contiguous(), y.contiguous())
+        dcheck_finite(x, "qr_lstsq_fused x")
+        return x.reshape(lead + (N, L))
+    r, _ = _qr_factor_batched(torch.cat([a, y], dim=-1), kmax=N)
+    x = _triu_solve_blocked(torch.triu(r[:, :N, :N]), r[:, :N, N:])
+    return x.reshape(lead + (N, L))

@@ -1,0 +1,123 @@
+"""Triangular inversion and the blocked upper-triangular solve, the
+counterpart of the parts of ``nd4js_tpu/la/tri.py`` that QR least
+squares runs: ``_tril_inv_core`` (log-depth nilpotent product),
+``_triu_solve_blocked`` and ``triu_solve(method="block")``.
+
+All work is batched GEMMs (``core.mm``); no triangular-solve library
+call stands in for them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.batch import batched
+from ..core.debug import dcheck_finite
+from ..core.mm import mm
+
+__all__ = ["triu_solve"]
+
+
+def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _tril_inv_core(L: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of lower-triangular ``L`` (..., n, n).
+
+    L = (I + M)·D with D = diag(L) and M = (L − D)·D⁻¹ strictly lower
+    (so Mⁿ = 0), hence L⁻¹ = D⁻¹·(I + M)⁻¹ with
+    (I + M)⁻¹ = (I − M)(I + M²)(I + M⁴)···, ⌈log₂ n⌉ factors, then one
+    Newton–Schulz polish X ← X·(2I − L·X). Above 128, block columns of
+    128 invert their diagonal blocks this way and combine by block
+    forward substitution (``nd4js_tpu/la/tri.py:47-110``).
+    """
+    n = L.shape[-1]
+    if n > 128:
+        b = 128
+        rows = []
+        eye_n = _eye(n, L)
+        lead = L.shape[:-2]
+        for k in range(0, n, b):
+            e = min(k + b, n)
+            dinv = _tril_inv_core(L[..., k:e, k:e])
+            rhs = eye_n[k:e].expand(lead + (e - k, n))
+            if k > 0:
+                rhs = rhs - mm(L[..., k:e, :k], torch.cat(rows, dim=-2))
+            rows.append(mm(dinv, rhs))
+        return torch.cat(rows, dim=-2)
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    dinv = 1.0 / d
+    if n == 1:
+        return dinv[..., None]
+    M = torch.tril(L, -1) * dinv[..., None, :]
+    eye = _eye(n, L)
+    X = eye - M
+    S = M
+    span = 2          # X matches the Neumann series through M^(span-1)
+    while span < n:
+        S = mm(S, S)
+        X = X + mm(X, S)
+        span *= 2
+    X = X * dinv[..., :, None]
+    # the telescoped product is exact per factor but loses ~√n·eps
+    # componentwise across factors; one polish squares that residual
+    X = X + mm(X, eye - mm(L, X))
+    return torch.tril(X)
+
+
+def _diag_blocks(T: torch.Tensor, nb: int, b: int) -> torch.Tensor:
+    """The nb diagonal b×b blocks of (..., nb·b, nb·b) as (..., nb, b, b)."""
+    g = T.reshape(T.shape[:-2] + (nb, b, nb, b))
+    return torch.diagonal(g, dim1=-4, dim2=-2).movedim(-1, -3)
+
+
+def _triu_solve_blocked(U: torch.Tensor, y: torch.Tensor,
+                        block: int | None = None) -> torch.Tensor:
+    """Blocked backward substitution for upper-triangular ``U``
+    (..., n, n): all diagonal-block inverses in one batched log-depth
+    GEMM tree, then nb−1 steps of two GEMMs each
+    (``nd4js_tpu/la/tri.py:190-225``)."""
+    n = U.shape[-2]
+    if block is None:
+        # nb ≈ 4 blocks: a constant number of steps at every size
+        block = max(32, -(-n // 4))
+        block = -(-block // 32) * 32
+    if n <= block:
+        inv = _tril_inv_core(U.flip(-2, -1)).flip(-2, -1)
+        return mm(inv, y)
+    nb = -(-n // block)
+    npad = nb * block - n
+    lead = torch.broadcast_shapes(U.shape[:-2], y.shape[:-2])
+    U = U.expand(lead + U.shape[-2:])
+    y = y.expand(lead + y.shape[-2:])
+    if npad:
+        eye_pad = _eye(nb * block, U)[n:, :].expand(lead + (npad, nb * block))
+        zeros = U.new_zeros(lead + (n, npad))
+        U = torch.cat([torch.cat([U, zeros], -1), eye_pad], -2)
+        y = torch.cat([y, y.new_zeros(lead + (npad, y.shape[-1]))], -2)
+    d = _diag_blocks(U, nb, block).flip(-2, -1)
+    dinv = _tril_inv_core(d).flip(-2, -1)               # (..., nb, b, b)
+    xs = [None] * nb
+    for i in range(nb - 1, -1, -1):
+        rhs = y[..., i * block:(i + 1) * block, :]
+        if i < nb - 1:
+            xdone = torch.cat(xs[i + 1:], dim=-2)
+            rhs = rhs - mm(U[..., i * block:(i + 1) * block,
+                             (i + 1) * block:], xdone)
+        xs[i] = mm(dinv[..., i, :, :], rhs)
+    x = torch.cat(xs, dim=-2)
+    return x[..., :n, :] if npad else x
+
+
+@batched((2, 2))
+def triu_solve(U: torch.Tensor, y: torch.Tensor,
+               method: str = "block") -> torch.Tensor:
+    """Solve U @ x = y with U upper-triangular (..., N, N), y (..., N, K);
+    leading dims broadcast. Only ``method="block"`` is ported so far."""
+    if method != "block":
+        raise NotImplementedError(
+            f"triu_solve method {method!r} is not ported yet "
+            "(ROADMAP.md, modules to port, item 2)")
+    x = _triu_solve_blocked(U, y)
+    dcheck_finite(x, "triu_solve x (singular diagonal?)")
+    return x

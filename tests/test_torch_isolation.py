@@ -1,0 +1,82 @@
+"""The port stands alone: nd4js_tpu_torch and chip_smoke.py import
+neither JAX nor the JAX package nor the tests, no library decomposition
+or compiler stands in for a kernel, and chip_smoke.py fails, printing no
+result, where there is no CUDA card."""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import nd4js_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = Path(nd4js_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "nd4js_tpu", "tests")
+
+
+def _top_level_imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    """A fresh interpreter with jax made unimportable imports every module
+    of the port; afterwards no jax or nd4js_tpu module is loaded."""
+    code = (
+        "import sys, json, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import nd4js_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'nd4js_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n, m in sys.modules.items() if m is not None and "
+        "(n == 'jax' or n.startswith(('jax.', 'jaxlib')) or n == 'nd4js_tpu' "
+        "or n.startswith('nd4js_tpu.') or n == 'tests' or "
+        "n.startswith('tests.')))\n"
+        "print(json.dumps({'modules': mods, 'bad': bad}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    expected = {"nd4js_tpu_torch." + ".".join(
+        p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py"}
+    assert expected <= set(got["modules"])
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert not _top_level_imports(path) & set(FORBIDDEN), path
+
+
+def test_chip_smoke_imports_only_the_port_torch_numpy_and_stdlib():
+    allowed = {"nd4js_tpu_torch", "torch", "numpy", "__future__"}
+    extra = _top_level_imports(ROOT / "chip_smoke.py") - allowed
+    assert extra <= set(sys.stdlib_module_names), extra
+
+
+def test_no_library_decomposition_or_compiler_on_the_main_path():
+    """torch.linalg, torch.geqrf, cuSOLVER, torch.compile and PyTorch's
+    C++ extension tooling appear nowhere in the port (chip_smoke.py may time
+    a library call as a yardstick; the port never calls one)."""
+    banned = ("torch.linalg", "geqrf", "cusolver", "torch.compile",
+              "cpp_extension", "torch/extension.h")
+    for path in sorted(PKG.rglob("*")):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            text = path.read_text().lower()
+            assert not [b for b in banned if b.lower() in text], path
+
+
+def test_chip_smoke_without_a_cuda_card_fails_and_prints_no_result():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         text=True, capture_output=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
