@@ -12,14 +12,19 @@ Phases, each announced by a flushed line at its start and its end:
    registers and shared memory per kernel;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it;
-3. the main path through the public entry points, with the launch
-   counters set to 0 just before and read just after: ``entry.forward``
-   at the shapes of ``__graft_entry__.entry()``, ``qr_decomp`` +
-   ``qr_lstsq`` on the (32, 512, 512) float32 batch of bench.py's 512²
-   suite, and ``qr_lstsq_fused`` on bench.py's config 1 (256², 4
-   right-hand sides), each held to bench.py's gates;
+3. the main path through the public entry points, each path with the
+   launch counters set to 0 just before it and read just after:
+   ``entry.forward`` at the shapes of ``__graft_entry__.entry()``,
+   ``qr_decomp`` + ``qr_lstsq`` on the (32, 512, 512) float32 batch of
+   bench.py's 512² suite, ``qr_lstsq_fused`` on bench.py's config 1
+   (256², 4 right-hand sides), config 2 (``lu_solve_fused``,
+   ``cholesky_decomp(inv=True)`` and ``cholesky_solve`` on 1024 SPD
+   systems of 128²), and the suite's ``lu_decomp``, ``cholesky_decomp``
+   and ``qr_decomp(method="auto")`` entries, each held to bench.py's
+   gates;
 4. times with CUDA events: each kernel, its plain version, one PyTorch
-   library call that computes the same function, and the bound.
+   library call that computes the same function, and the bound; and the
+   wall time of each bench.py entry above.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -43,7 +48,9 @@ import torch
 import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from nd4js_tpu_torch import la
 from nd4js_tpu_torch.entry import entry
-from nd4js_tpu_torch.ops import _build, house_panel as hp, house_stripe as hs
+from nd4js_tpu_torch.la import qr as qr_mod
+from nd4js_tpu_torch.ops import _build, chol_leaf as cl, house_panel as hp, \
+    house_stripe as hs, lu_panel as lp
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -57,6 +64,7 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # a solve's backward error against its reference's: two Householder solves
 # that round differently stay within 1.4x of each other on random systems
 BACKWARD_MULT = 8
+KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv")
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -190,8 +198,7 @@ def phase1():
             say("  " + line.strip())
 
 
-def phase2(rng):
-    errs = {"house_panel": 0.0, "qr_gesv": 0.0}
+def phase2_qr(rng, errs):
     for dtype in (torch.float32, torch.float64):
         for shape in ((32, 512, 128), (32, 384, 128), (32, 256, 128),
                       (32, 128, 128), (4, 128, 128)):
@@ -218,24 +225,147 @@ def phase2(rng):
                               hs.qr_gesv(a, y), hs.qr_gesv_ref(a, y), dtype)
             if dtype == torch.float32:
                 errs["qr_gesv"] = max(errs["qr_gesv"], err)
+
+
+def spd_garbage_above(rng, nb, n):
+    """a·aᵀ/n + 2I from a seeded normal (bench.py's config 2 recipe), as
+    float64 on the card, with the strict upper triangle overwritten by
+    normal values times 1e3, which a kernel that reads only the lower
+    triangle never sees."""
+    a = torch.from_numpy(rng.standard_normal((nb, n, n))).to(DEVICE)
+    spd = torch.matmul(a, a.mT) / n + 2 * torch.eye(n, device=DEVICE,
+                                                    dtype=a.dtype)
+    junk = torch.from_numpy(rng.standard_normal((nb, n, n))).to(DEVICE)
+    return torch.tril(spd) + torch.triu(junk * 1e3, 1)
+
+
+def phase2_chol(rng, errs):
+    for dtype in (torch.float32, torch.float64):
+        for nb in (1024, 32):
+            a = spd_garbage_above(rng, nb, 64).to(dtype)
+            amax = maxabs(torch.tril(a))
+            for with_inv in (False, True):
+                l, li = cl.chol_leaf(a, with_inv)
+                l_ref, li_ref = cl.chol_leaf_ref(a, with_inv)
+                err = maxabs(l - l_ref)
+                tol = TOL[dtype] * amax
+                check(err <= tol and maxabs(torch.triu(l, 1)) == 0.0,
+                      f"chol_leaf ({nb}, 64, 64) {dtype} inv={with_inv}, "
+                      f"upper triangle garbage: max |L - plain| = "
+                      f"{err:.3e} <= {tol:.3e}, zeros above")
+                if with_inv:
+                    ierr = maxabs(li - li_ref)
+                    itol = TOL[dtype] * maxabs(li_ref)
+                    check(ierr <= itol, f"chol_leaf ({nb}, 64, 64) {dtype}: "
+                          f"max |L⁻¹ - plain| = {ierr:.3e} <= {itol:.3e}")
+                    err = max(err, ierr)
+                if dtype == torch.float32:
+                    errs["chol_leaf"] = max(errs["chol_leaf"], err)
+
+
+def packed_lu_residual(a, out, rank) -> float:
+    """max |L·U − A[P]| of a factored panel (rows in input order) after
+    sorting rows by (rank, index), in float64."""
+    nb, m, b = a.shape
+    iota = torch.arange(m, device=a.device)
+    order = torch.argsort(rank.long() * m + iota, dim=1)
+    idx = order[:, :, None].expand(nb, m, b)
+    packed = torch.gather(out, 1, idx).double()
+    L = torch.tril(packed, -1) + torch.eye(m, b, device=a.device,
+                                           dtype=torch.float64)
+    U = torch.triu(packed[:, :b])
+    return maxabs(torch.matmul(L, U) - torch.gather(a, 1, idx).double())
+
+
+def phase2_lu(rng, errs):
+    for dtype in (torch.float32, torch.float64):
+        for m in (512, 384, 256, 128):
+            a = torch.from_numpy(rng.standard_normal((32, m, 128))).to(
+                DEVICE, dtype)
+            out, rank = lp.lu_panel(a)
+            out_ref, rank_ref = lp.lu_panel_ref(a)
+            amax = maxabs(a)
+            ndiff = int((rank != rank_ref).sum())
+            what = f"lu_panel (32, {m}, 128) {dtype}"
+            if dtype == torch.float64:
+                check(ndiff == 0, f"{what}: rank equal to the plain version's")
+            else:
+                say(f"{what}: {ndiff} rank entries differ from the plain "
+                    "version's (expected 0)")
+            if ndiff == 0:
+                err = maxabs(out - out_ref)
+                tol = TOL[dtype] * amax
+                check(err <= tol, f"{what}: max |panel - plain| = {err:.3e} "
+                      f"<= {tol:.3e}")
+                if dtype == torch.float32:
+                    errs["lu_panel"] = max(errs["lu_panel"], err)
+            tol = 1e-5 * amax * m ** 0.5
+            for who, o, r in (("kernel", out, rank), ("plain", out_ref,
+                                                      rank_ref)):
+                res = packed_lu_residual(a, o, r)
+                check(res <= tol, f"{what}, {who}: packed max |L·U - A[P]| = "
+                      f"{res:.3e} <= {tol:.3e}")
+        for nb, k in ((1024, 1), (64, 4)):
+            a = torch.from_numpy(rng.standard_normal((nb, 128, 128))).to(
+                DEVICE, dtype)
+            y = torch.from_numpy(rng.standard_normal((nb, 128, k))).to(
+                DEVICE, dtype)
+            err = solve_check(f"lu_gesv ({nb}, 128, 128) K={k} {dtype}, "
+                              "kernel against plain", a, y, lp.lu_gesv(a, y),
+                              lp.lu_gesv_ref(a, y), dtype)
+            if dtype == torch.float32:
+                errs["lu_gesv"] = max(errs["lu_gesv"], err)
+    x = lp.lu_gesv(torch.ones((1, 8, 8), device=DEVICE),
+                   torch.ones((1, 8, 1), device=DEVICE))
+    check(not bool(torch.isfinite(x).all()),
+          "lu_gesv on an exactly singular system: x is not finite")
+
+
+def phase2(rng):
+    errs = dict.fromkeys(KERNELS, 0.0)
+    phase2_qr(rng, errs)
+    phase2_chol(rng, errs)
+    phase2_lu(rng, errs)
     return errs
 
 
-def square_solve_gate(a, x, y, what):
+def square_solve_gate(a, x, y, what, where="bench.py:362"):
     n = a.shape[-1]
     resid = maxabs(torch.matmul(a, x) - y)
     tol = 1e-4 * maxabs(a) * n ** 0.5
     check(resid <= tol, f"{what}: max |A·x - y| = {resid:.3e} <= {tol:.3e} "
-          "(bench.py:362)")
+          f"({where})")
+
+
+def reset_counts() -> None:
+    hp.launches = hs.launches = cl.launches = 0
+    lp.launches.update(lu_panel=0, lu_gesv=0)
+    qr_mod.auto_branches.update(cholqr2=0, householder=0)
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {"house_panel": hp.launches, "qr_gesv": hs.launches,
+            "chol_leaf": cl.launches, "lu_panel": lp.launches["lu_panel"],
+            "lu_gesv": lp.launches["lu_gesv"]}
+
+
+def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
+    """Each kernel in ``want`` launched exactly that often, the others not
+    at all; add ``got`` to ``totals``."""
+    full = dict.fromkeys(KERNELS, 0) | want
+    check(got == full, f"{what}: launches {got}, expected {full}")
+    for k, v in got.items():
+        totals[k] += v
 
 
 def phase3(gen):
-    hp.launches = 0
-    hs.launches = 0
+    totals = dict.fromkeys(KERNELS, 0)
 
+    reset_counts()
     forward, (a, y) = entry(device=DEVICE)
     x, resid = forward(a, y)
-    torch.cuda.synchronize()
+    check_counts("entry.forward", read_counts(), {"house_panel": 1}, totals)
     check(tuple(x.shape) == (4, 128, 1) and tuple(resid.shape) == (4,)
           and bool(torch.isfinite(x).all() and torch.isfinite(resid).all()),
           f"entry.forward: x {tuple(x.shape)}, resid {tuple(resid.shape)}, "
@@ -245,18 +375,16 @@ def phase3(gen):
                                              y.double().cpu().numpy()))
     solve_check("entry.forward against a float64 solve on the host", a, y, x,
                 x_ref, torch.float32)
-    after_entry = hp.launches
 
     n, b = 512, 32
     a = torch.randn((b, n, n), generator=gen, dtype=torch.float32)
     a = a.to(DEVICE)
     y = torch.randn((b, n, 1), generator=gen, dtype=torch.float32).to(DEVICE)
+    reset_counts()
     q, r = la.qr_decomp(a)
     x = la.qr_lstsq(q, r, y)
-    torch.cuda.synchronize()
-    check(hp.launches - after_entry == n // 128,
-          f"qr_decomp (32, 512, 512): house_panel launched "
-          f"{hp.launches - after_entry} times, K/128 = {n // 128}")
+    check_counts("qr_decomp + qr_lstsq (32, 512, 512)", read_counts(),
+                 {"house_panel": n // 128}, totals)
     amax = maxabs(a)
     recon = maxabs(torch.matmul(q, r) - a)
     tol = 1e-5 * amax * n ** 0.5
@@ -264,29 +392,121 @@ def phase3(gen):
           f"{tol:.3e} (bench.py:294)")
     eye = torch.eye(n, device=DEVICE)
     orth = maxabs(torch.matmul(q.mT, q) - eye)
-    tol = 4 * torch.finfo(torch.float32).eps * n
-    check(orth <= tol, f"qr_decomp: max |QᵀQ - I| = {orth:.3e} <= {tol:.3e}")
+    otol = 4 * torch.finfo(torch.float32).eps * n
+    check(orth <= otol, f"qr_decomp: max |QᵀQ - I| = {orth:.3e} <= "
+          f"{otol:.3e}")
     square_solve_gate(a, x, y, "qr_lstsq (32, 512, 512)")
 
-    n = 256
-    a1 = torch.randn((n, n), generator=gen, dtype=torch.float32).to(DEVICE)
-    y1 = torch.randn((n, 4), generator=gen, dtype=torch.float32).to(DEVICE)
+    n1 = 256
+    a1 = torch.randn((n1, n1), generator=gen, dtype=torch.float32).to(DEVICE)
+    y1 = torch.randn((n1, 4), generator=gen, dtype=torch.float32).to(DEVICE)
+    reset_counts()
     x1 = la.qr_lstsq_fused(a1, y1)
-    torch.cuda.synchronize()
-    check(hs.launches == 1,
-          f"qr_lstsq_fused (256, 256): qr_gesv launched {hs.launches} time")
+    check_counts("qr_lstsq_fused (256, 256)", read_counts(), {"qr_gesv": 1},
+                 totals)
     square_solve_gate(a1, x1, y1, "qr_lstsq_fused (256, 256), K=4")
 
-    counts = {"house_panel": hp.launches, "qr_gesv": hs.launches}
-    say(f"launches on the main path: {counts}")
-    check(all(c > 0 for c in counts.values()),
+    cfg2 = config2_inputs(gen)
+    reset_counts()
+    xl, xc = config2(*cfg2)
+    check_counts("config 2 (1024, 128, 128)", read_counts(),
+                 {"lu_gesv": 1, "chol_leaf": 2}, totals)
+    spd2, y2 = cfg2
+    for what, xs in (("lu_solve_fused", xl), ("cholesky_solve(l_inv=…)", xc)):
+        square_solve_gate(spd2, xs, y2, f"config 2 {what} (1024, 128, 128)",
+                          "bench.py:392")
+
+    reset_counts()
+    lu, p = la.lu_decomp(a)
+    check_counts("lu_decomp (32, 512, 512)", read_counts(),
+                 {"lu_panel": n // 128}, totals)
+    L = torch.tril(lu, -1) + torch.eye(n, device=DEVICE)
+    ap = torch.gather(a, 1, p.long()[..., None].expand(a.shape))
+    recon = maxabs(torch.matmul(L, torch.triu(lu)) - ap)
+    check(recon <= tol, f"lu_decomp: max |L·U - A[P]| = {recon:.3e} <= "
+          f"{tol:.3e} (bench.py:302)")
+
+    spd = torch.matmul(a, a.mT) / n + 2 * torch.eye(n, device=DEVICE)
+    reset_counts()
+    L = la.cholesky_decomp(spd)
+    check_counts("cholesky_decomp (32, 512, 512)", read_counts(),
+                 {"chol_leaf": 8}, totals)
+    recon = maxabs(torch.matmul(L, L.mT) - spd)
+    ctol = 1e-5 * maxabs(spd) * n ** 0.5
+    check(recon <= ctol, f"cholesky_decomp: max |L·Lᵀ - A| = {recon:.3e} <= "
+          f"{ctol:.3e} (bench.py:310)")
+
+    reset_counts()
+    q, r = la.qr_decomp(a, method="auto")
+    counts = read_counts()
+    branch = "householder" if qr_mod.auto_branches["householder"] else \
+        "cholqr2"
+    say(f"qr_decomp(method='auto') (32, 512, 512) took the {branch} branch "
+        f"({qr_mod.auto_branches})")
+    check_counts("qr_decomp(method='auto') (32, 512, 512)", counts,
+                 {"chol_leaf": 16} | ({"house_panel": n // 128}
+                                      if branch == "householder" else {}),
+                 totals)
+    recon = maxabs(torch.matmul(q, r) - a)
+    check(recon <= tol, f"qr_decomp(method='auto'): max |Q·R - A| = "
+          f"{recon:.3e} <= {tol:.3e} (bench.py:294)")
+    orth = maxabs(torch.matmul(q.mT, q) - eye)
+    check(orth <= otol, f"qr_decomp(method='auto'): max |QᵀQ - I| = "
+          f"{orth:.3e} <= {otol:.3e}")
+    # why auto chose as it did: CholeskyQR2's defect per matrix, against
+    # the contract, beside each matrix's condition number
+    qf, _ = qr_mod._qr_cholqr2_flat(a, True)
+    defect = (torch.matmul(qf.mT, qf) - eye).abs().amax(dim=(-2, -1)).cpu()
+    sv = np.linalg.svd(a.double().cpu().numpy(), compute_uv=False)
+    kappa = sv[:, 0] / sv[:, -1]
+    w = int(defect.argmax())
+    say(f"CholeskyQR2 on the same batch: max |QᵀQ - I| per matrix, worst "
+        f"{float(defect[w]):.3e} (matrix {w}, κ₂ {kappa[w]:.3e}), "
+        f"{int((defect > otol).sum())} of {len(defect)} over {otol:.3e}; "
+        f"κ₂ of the batch from {kappa.min():.3e} to {kappa.max():.3e}, "
+        f"{int((kappa > torch.finfo(torch.float32).eps ** -0.5).sum())} "
+        "over 1/√eps")
+
+    say(f"launches on the main path: {totals}")
+    check(all(c > 0 for c in totals.values()),
           "every kernel of the path was launched")
-    return counts, (a, y), (a1, y1)
+    return totals, (a, y), (a1, y1), cfg2, spd
 
 
-def phase4(counts, errs, batch, cfg1):
+def config2_inputs(gen):
+    """bench.py's config 2 (bench.py:369-395): SPD = a·aᵀ/N + 2I from a
+    seeded normal (1024, 128, 128) and y (1024, 128, 1), float32."""
+    n, b = 128, 1024
+    a = torch.randn((b, n, n), generator=gen, dtype=torch.float32).to(DEVICE)
+    spd = torch.matmul(a, a.mT) / n + 2 * torch.eye(n, device=DEVICE)
+    y = torch.randn((b, n, 1), generator=gen, dtype=torch.float32).to(DEVICE)
+    return spd, y
+
+
+def config2(spd, y):
+    xl = la.lu_solve_fused(spd, y)
+    L, Li = la.cholesky_decomp(spd, inv=True)
+    return xl, la.cholesky_solve(L, y, l_inv=Li)
+
+
+def wall_ms(fn):
+    """Host-clock milliseconds of ``fn`` to a synchronised end, three
+    times after one warm-up call."""
+    fn()
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase4(counts, errs, batch, cfg1, cfg2, spd512):
     a, _ = batch
     a1, y1 = cfg1
+    spd2, y2 = cfg2
     panel = a[:, :, :128].contiguous()
     nb, m, bw = panel.shape
     hp_flops = nb * (2 * m * bw ** 2 - 2 / 3 * bw ** 3)
@@ -295,6 +515,18 @@ def phase4(counts, errs, batch, cfg1):
     n, k = a1.shape[-1], y1.shape[-1]
     gs_flops = 4 / 3 * n ** 3 + 3 * n ** 2 * k
     gs_bytes = 4 * (n * n + 2 * n * k)
+    # chol_leaf: config 2's first leaf, with the inverse, as the path runs it
+    leaf = spd2[:, :64, :64].contiguous()
+    lb, ln = leaf.shape[0], leaf.shape[-1]
+    eye_leaf = torch.eye(ln, device=DEVICE).expand(lb, ln, ln)
+    cl_flops = lb * 2 / 3 * ln ** 3            # factor n³/3 + inverse n³/3
+    cl_bytes = 4 * 3 * lb * ln * ln            # A read, L and L⁻¹ written
+    lp_flops = nb * (m * bw ** 2 - bw ** 3 / 3)
+    lp_bytes = nb * (4 * 2 * m * bw + 4 * m)   # panel in and out, rank
+    gb, gn = spd2.shape[0], spd2.shape[-1]
+    gk = y2.shape[-1]
+    lg_flops = gb * (2 / 3 * gn ** 3 + 2 * gn ** 2 * gk)
+    lg_bytes = 4 * gb * (gn * (gn + gk) + gn * gk)
     rows = []
     for name, src, repl, kern, plain, lib, flops, nbytes, shape in (
             ("house_panel", "nd4js_tpu_torch/csrc/house_panel.cu",
@@ -306,7 +538,24 @@ def phase4(counts, errs, batch, cfg1):
              "nd4js_tpu/ops/house_stripe.py:206",
              lambda: hs.qr_gesv(a3, y3), lambda: hs.qr_gesv_ref(a3, y3),
              lambda: torch.linalg.solve(a3, y3), gs_flops, gs_bytes,
-             list(a3.shape) + [k])):
+             list(a3.shape) + [k]),
+            ("chol_leaf", "nd4js_tpu_torch/csrc/chol_leaf.cu",
+             "nd4js_tpu/ops/chol_leaf.py:104",
+             lambda: cl.chol_leaf(leaf, True),
+             lambda: cl.chol_leaf_ref(leaf, True),
+             lambda: torch.linalg.solve_triangular(
+                 torch.linalg.cholesky(leaf), eye_leaf, upper=False),
+             cl_flops, cl_bytes, list(leaf.shape)),
+            ("lu_panel", "nd4js_tpu_torch/csrc/lu_panel.cu",
+             "nd4js_tpu/ops/lu_panel.py:337",
+             lambda: lp.lu_panel(panel), lambda: lp.lu_panel_ref(panel),
+             lambda: torch.linalg.lu_factor(panel), lp_flops, lp_bytes,
+             list(panel.shape)),
+            ("lu_gesv", "nd4js_tpu_torch/csrc/lu_panel.cu",
+             "nd4js_tpu/ops/lu_panel.py:274",
+             lambda: lp.lu_gesv(spd2, y2), lambda: lp.lu_gesv_ref(spd2, y2),
+             lambda: torch.linalg.solve(spd2, y2), lg_flops, lg_bytes,
+             list(spd2.shape) + [gk])):
         t_bound, by = bound(flops, nbytes)
         row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                "launches": counts[name], "max_abs_err": errs[name],
@@ -325,13 +574,12 @@ def phase4(counts, errs, batch, cfg1):
         q, r = la.qr_decomp(a)
         return la.qr_lstsq(q, r, y)
 
-    wall = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        headline()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
+    wall = {"qr_decomp + qr_lstsq": wall_ms(headline),
+            "config 2": wall_ms(lambda: config2(spd2, y2)),
+            "lu_decomp": wall_ms(lambda: la.lu_decomp(a)),
+            "cholesky_decomp": wall_ms(lambda: la.cholesky_decomp(spd512)),
+            "qr_decomp(method='auto')":
+                wall_ms(lambda: la.qr_decomp(a, method="auto"))}
     # where the headline's time goes: its four house_panel launches, one
     # per panel shape, against the whole call on the device
     panels = [cuda_ms(lambda p=a[:, k:, k:k + 128].contiguous():
@@ -340,6 +588,13 @@ def phase4(counts, errs, batch, cfg1):
         "ms: " + ", ".join(f"{t:.4f}" for t in panels)
         + f"; sum {sum(panels):.4f}; whole call on the device "
         f"{cuda_ms(headline, 3):.4f}")
+    # the same for the 512² lu_decomp's four lu_panel launches
+    lpanels = [cuda_ms(lambda p=a[:, k:, k:k + 128].contiguous():
+                       lp.lu_panel(p), 5) for k in range(0, 512, 128)]
+    say("lu_panel on lu_decomp's panel shapes (32, 512|384|256|128, 128) "
+        "ms: " + ", ".join(f"{t:.4f}" for t in lpanels)
+        + f"; sum {sum(lpanels):.4f}; whole lu_decomp on the device "
+        f"{cuda_ms(lambda: la.lu_decomp(a), 3):.4f}")
     return rows, wall
 
 
@@ -359,13 +614,14 @@ def main():
     with phase("2 kernels against their plain versions"):
         errs = phase2(rng)
     with phase("3 main path"):
-        counts, batch, cfg1 = phase3(gen)
+        counts, batch, cfg1, cfg2, spd512 = phase3(gen)
     with phase("4 times"):
-        rows, wall = phase4(counts, errs, batch, cfg1)
+        rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
-    say("qr_decomp + qr_lstsq (32, 512, 512) float32 wall ms, 3 runs: "
-        + ", ".join(f"{w:.3f}" for w in wall))
+    for what, runs in wall.items():
+        say(f"{what} float32 wall ms, {len(runs)} runs: "
+            + ", ".join(f"{w:.3f}" for w in runs))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -1,6 +1,8 @@
-"""QR decomposition and least squares: blocked Householder with
-compact-WY aggregation, the counterpart of ``nd4js_tpu/la/qr.py``'s
-Householder path.
+"""QR decomposition and least squares, the counterpart of
+``nd4js_tpu/la/qr.py``: blocked Householder with compact-WY
+aggregation, CholeskyQR2 panels (``method="cholqr2"``), and the
+condition-adaptive ``method="auto"`` that takes CholeskyQR2 and falls
+back to Householder when its orthogonality defect is over the contract.
 
     per panel of width b:
       R_panel, V, taus = house_panel(A[k:, k:k+b])         (CUDA kernel)
@@ -25,12 +27,18 @@ from ..core.debug import dassert, dcheck_finite
 from ..core.mm import mm, mt
 from ..ops.house_panel import house_panel
 from ..ops.house_stripe import qr_gesv
+from .cholesky import _chol_inv_core
 from .tri import _tril_inv_core, _triu_solve_blocked, triu_solve
 
 __all__ = ["qr_decomp", "qr_decomp_full", "qr_lstsq", "qr_solve",
            "qr_lstsq_fused"]
 
 _PANEL = 128
+
+# How often ``method="auto"`` kept CholeskyQR2 and how often it fell back
+# to Householder, since the last reset: one count per call, as the
+# decision is one for the whole batch.
+auto_branches = {"cholqr2": 0, "householder": 0}
 
 
 def _form_t_batched(V: torch.Tensor, taus: torch.Tensor):
@@ -102,21 +110,105 @@ def _qr_house_flat(a3: torch.Tensor, economic: bool):
     return q, r
 
 
+def _cholqr2_panel(p: torch.Tensor, q_prev):
+    """Orthogonalise a flat-batched panel ``p`` (B, M, b) against q_prev
+    (BCGS2) and internally (CholeskyQR2; the panel Cholesky carries its
+    inverse, so the whitening is a GEMM). Returns (q_new, r_top, r_diag)
+    (``nd4js_tpu/la/qr.py:144-176``)."""
+    finfo = torch.finfo(p.dtype)
+    b = p.shape[-1]
+    eye = torch.eye(b, dtype=p.dtype, device=p.device)
+
+    def cholqr(p):
+        g = mm(mt(p), p)
+        # a tiny diagonal shift keeps the Cholesky alive on nearly rank-
+        # deficient panels; Q·R == P holds by construction all the same
+        tr = torch.diagonal(g, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+        shift = 10 * finfo.eps * tr / b + finfo.tiny
+        l, linv = _chol_inv_core(g + shift * eye)
+        return mm(p, mt(linv)), mt(l)
+
+    s1 = None
+    if q_prev is not None:
+        s1 = mm(mt(q_prev), p)
+        p = p - mm(q_prev, s1)
+    q1, r1 = cholqr(p)
+    if q_prev is not None:
+        s2 = mm(mt(q_prev), q1)
+        q1 = q1 - mm(q_prev, s2)
+    q2, r2 = cholqr(q1)
+    r_diag = mm(r2, r1)
+    r_top = None if s1 is None else s1 + mm(s2, r1)
+    return q2, r_top, r_diag
+
+
+def _qr_cholqr2_flat(a3: torch.Tensor, economic: bool):
+    """All-GEMM QR of a flat (B, M, N) batch: blocked classical
+    Gram-Schmidt with reorthogonalisation (BCGS2) over CholeskyQR2
+    panels of 128 (``nd4js_tpu/la/qr.py:179-214``). Orthogonality holds
+    for κ(A) ≲ 1/√eps; Householder stays the robust default."""
+    B, M, N = a3.shape
+    K = min(M, N)
+    q_panels, r_cols = [], []
+    q = None
+    for k in range(0, K, _PANEL):
+        b = min(_PANEL, K - k)
+        qk, r_top, r_diag = _cholqr2_panel(a3[:, :, k:k + b], q)
+        block = [r_diag] if r_top is None else [r_top, r_diag]
+        if K - (k + b) > 0:
+            block.append(a3.new_zeros((B, K - k - b, b)))
+        r_cols.append(torch.cat(block, dim=1))
+        q_panels.append(qk)
+        q = torch.cat(q_panels, dim=2)
+    r = torch.cat(r_cols, dim=2)
+    if N > K:
+        r = torch.cat([r, mm(mt(q), a3[:, :, K:])], dim=2)
+    if not economic:
+        # extend Q to a full orthogonal basis by orthogonalising the
+        # identity's columns K..M−1 against it (only when M > K)
+        if M > K:
+            extra = torch.eye(M, dtype=a3.dtype,
+                              device=a3.device)[:, K:].expand(B, M, M - K)
+            qe, _, _ = _cholqr2_panel(extra, q)
+            q = torch.cat([q, qe], dim=2)
+        r = torch.cat([r, a3.new_zeros((B, M - K, N))], dim=1)
+    return q, torch.triu(r)
+
+
+def _qr_auto_flat(a3: torch.Tensor, economic: bool):
+    """Condition-adaptive QR of a flat (B, M, N) batch
+    (``nd4js_tpu/la/qr.py:312-331``): CholeskyQR2, then its orthogonality
+    defect max|QᵀQ − I| over the WHOLE batch; above the contract
+    4·eps·max(M, N) (or NaN) the whole batch is redone by Householder.
+    JAX's ``lax.cond`` on that scalar is one host-side ``if`` here, at
+    the cost of one synchronisation."""
+    Bn, M, N = a3.shape
+    qf, rf = _qr_cholqr2_flat(a3, economic)
+    eye = torch.eye(qf.shape[-1], dtype=a3.dtype, device=a3.device)
+    defect = (mm(mt(qf), qf) - eye).abs().max()
+    tol = 4 * torch.finfo(a3.dtype).eps * max(M, N)
+    if bool(defect <= tol):
+        auto_branches["cholqr2"] += 1
+        return qf, rf
+    auto_branches["householder"] += 1
+    return _qr_house_flat(a3, economic)
+
+
+_FLAT_METHODS = {"householder": _qr_house_flat, "cholqr2": _qr_cholqr2_flat,
+                 "auto": _qr_auto_flat}
+
+
 def _qr_public(a, economic: bool, method: str, device):
     a = as_tensor(a, device)
     a = a.to(default_float_for(a.dtype))
     if a.ndim < 2:
         raise ValueError("qr_decomp expects ndim >= 2")
-    if method in ("cholqr2", "auto"):
-        raise NotImplementedError(
-            f"qr method {method!r} needs la/cholesky.py and is not ported "
-            "yet (ROADMAP.md, modules to port, item 4)")
-    if method != "householder":
+    if method not in _FLAT_METHODS:
         raise ValueError(f"unknown method {method!r}")
     lead = a.shape[:-2]
     M, N = a.shape[-2:]
     a3 = a.reshape((max(1, math.prod(lead)), M, N))
-    q, r = _qr_house_flat(a3, economic)
+    q, r = _FLAT_METHODS[method](a3, economic)
     return (q.reshape(lead + q.shape[-2:]),
             r.reshape(lead + (r.shape[-2], N)))
 
@@ -135,9 +227,11 @@ def _qr_debug_guard(q, r):
 
 def qr_decomp(a, method: str = "householder", device=None):
     """Economic QR: A = Q·R, Q (..., M, K), R (..., K, N), K = min(M, N).
-    Batched over leading dims. ``method`` is 'householder'; 'cholqr2'
-    and 'auto' are not ported yet. An array-like ``a`` goes to
-    ``device`` (default ``config.default_device``)."""
+    Batched over leading dims. ``method`` is 'householder' (the
+    default), 'cholqr2' (all GEMMs and ``chol_leaf``; orthogonal for
+    κ(A) ≲ 1/√eps) or 'auto' (CholeskyQR2, redone by Householder when
+    its orthogonality defect exceeds 4·eps·max(M, N)). An array-like
+    ``a`` goes to ``device`` (default ``config.default_device``)."""
     q, r = _qr_public(a, economic=True, method=method, device=device)
     _qr_debug_guard(q, r)
     return q, r

@@ -1,7 +1,9 @@
-"""Triangular inversion and the blocked upper-triangular solve, the
-counterpart of the parts of ``nd4js_tpu/la/tri.py`` that QR least
-squares runs: ``_tril_inv_core`` (log-depth nilpotent product),
-``_triu_solve_blocked`` and ``triu_solve(method="block")``.
+"""Triangular extractors, inversion and blocked solves, the counterpart
+of ``nd4js_tpu/la/tri.py``: ``tril``/``triu``, ``_tril_inv_core``
+(log-depth nilpotent product), ``_tril_solve_blocked``,
+``_triu_solve_blocked`` and the public solves with ``method="block"``.
+The ``scan`` and ``inv`` methods are not ported yet (ROADMAP.md,
+modules to port, item 2).
 
 All work is batched GEMMs (``core.mm``); no triangular-solve library
 call stands in for them.
@@ -14,7 +16,18 @@ from ..core.batch import batched
 from ..core.debug import dcheck_finite
 from ..core.mm import mm
 
-__all__ = ["triu_solve"]
+__all__ = ["tril", "triu", "tril_solve", "triu_solve", "tril_t_solve",
+           "triu_t_solve"]
+
+
+def tril(a: torch.Tensor, k: int = 0) -> torch.Tensor:
+    """Lower-triangular part."""
+    return torch.tril(a, k)
+
+
+def triu(a: torch.Tensor, k: int = 0) -> torch.Tensor:
+    """Upper-triangular part."""
+    return torch.triu(a, k)
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -71,6 +84,51 @@ def _diag_blocks(T: torch.Tensor, nb: int, b: int) -> torch.Tensor:
     return torch.diagonal(g, dim1=-4, dim2=-2).movedim(-1, -3)
 
 
+def _pad_to_blocks(T: torch.Tensor, y: torch.Tensor, nb: int, block: int):
+    """Broadcast T (..., n, n) and y (..., n, K) to one leading shape and
+    pad them to nb·block rows: identity on T's new diagonal, zeros in y."""
+    n = T.shape[-2]
+    npad = nb * block - n
+    lead = torch.broadcast_shapes(T.shape[:-2], y.shape[:-2])
+    T = T.expand(lead + T.shape[-2:])
+    y = y.expand(lead + y.shape[-2:])
+    if npad:
+        eye_pad = _eye(nb * block, T)[n:, :].expand(lead + (npad, nb * block))
+        zeros = T.new_zeros(lead + (n, npad))
+        T = torch.cat([torch.cat([T, zeros], -1), eye_pad], -2)
+        y = torch.cat([y, y.new_zeros(lead + (npad, y.shape[-1]))], -2)
+    return T, y
+
+
+def _default_block(n: int) -> int:
+    # nb ≈ 4 blocks: a constant number of steps at every size
+    block = max(32, -(-n // 4))
+    return -(-block // 32) * 32
+
+
+def _tril_solve_blocked(L: torch.Tensor, y: torch.Tensor,
+                        block: int | None = None) -> torch.Tensor:
+    """Blocked forward substitution for lower-triangular ``L``
+    (..., n, n): all diagonal-block inverses in one batched log-depth
+    GEMM tree, then nb−1 steps of two GEMMs each
+    (``nd4js_tpu/la/tri.py:151-187``)."""
+    n = L.shape[-2]
+    block = _default_block(n) if block is None else block
+    if n <= block:
+        return mm(_tril_inv_core(L), y)
+    nb = -(-n // block)
+    L, y = _pad_to_blocks(L, y, nb, block)
+    dinv = _tril_inv_core(_diag_blocks(L, nb, block))   # (..., nb, b, b)
+    xs = []
+    for i in range(nb):
+        rhs = y[..., i * block:(i + 1) * block, :]
+        if i > 0:
+            rhs = rhs - mm(L[..., i * block:(i + 1) * block, :i * block],
+                           torch.cat(xs, dim=-2))
+        xs.append(mm(dinv[..., i, :, :], rhs))
+    return torch.cat(xs, dim=-2)[..., :n, :]
+
+
 def _triu_solve_blocked(U: torch.Tensor, y: torch.Tensor,
                         block: int | None = None) -> torch.Tensor:
     """Blocked backward substitution for upper-triangular ``U``
@@ -78,23 +136,12 @@ def _triu_solve_blocked(U: torch.Tensor, y: torch.Tensor,
     GEMM tree, then nb−1 steps of two GEMMs each
     (``nd4js_tpu/la/tri.py:190-225``)."""
     n = U.shape[-2]
-    if block is None:
-        # nb ≈ 4 blocks: a constant number of steps at every size
-        block = max(32, -(-n // 4))
-        block = -(-block // 32) * 32
+    block = _default_block(n) if block is None else block
     if n <= block:
         inv = _tril_inv_core(U.flip(-2, -1)).flip(-2, -1)
         return mm(inv, y)
     nb = -(-n // block)
-    npad = nb * block - n
-    lead = torch.broadcast_shapes(U.shape[:-2], y.shape[:-2])
-    U = U.expand(lead + U.shape[-2:])
-    y = y.expand(lead + y.shape[-2:])
-    if npad:
-        eye_pad = _eye(nb * block, U)[n:, :].expand(lead + (npad, nb * block))
-        zeros = U.new_zeros(lead + (n, npad))
-        U = torch.cat([torch.cat([U, zeros], -1), eye_pad], -2)
-        y = torch.cat([y, y.new_zeros(lead + (npad, y.shape[-1]))], -2)
+    U, y = _pad_to_blocks(U, y, nb, block)
     d = _diag_blocks(U, nb, block).flip(-2, -1)
     dinv = _tril_inv_core(d).flip(-2, -1)               # (..., nb, b, b)
     xs = [None] * nb
@@ -105,8 +152,23 @@ def _triu_solve_blocked(U: torch.Tensor, y: torch.Tensor,
             rhs = rhs - mm(U[..., i * block:(i + 1) * block,
                              (i + 1) * block:], xdone)
         xs[i] = mm(dinv[..., i, :, :], rhs)
-    x = torch.cat(xs, dim=-2)
-    return x[..., :n, :] if npad else x
+    return torch.cat(xs, dim=-2)[..., :n, :]
+
+
+def _check_method(name: str, method: str) -> None:
+    if method != "block":
+        raise NotImplementedError(
+            f"{name} method {method!r} is not ported yet "
+            "(ROADMAP.md, modules to port, item 2)")
+
+
+@batched((2, 2))
+def tril_solve(L: torch.Tensor, y: torch.Tensor,
+               method: str = "block") -> torch.Tensor:
+    """Solve L @ x = y with L lower-triangular (..., N, N), y (..., N, K);
+    leading dims broadcast. Only ``method="block"`` is ported so far."""
+    _check_method("tril_solve", method)
+    return _tril_solve_blocked(L, y)
 
 
 @batched((2, 2))
@@ -114,10 +176,19 @@ def triu_solve(U: torch.Tensor, y: torch.Tensor,
                method: str = "block") -> torch.Tensor:
     """Solve U @ x = y with U upper-triangular (..., N, N), y (..., N, K);
     leading dims broadcast. Only ``method="block"`` is ported so far."""
-    if method != "block":
-        raise NotImplementedError(
-            f"triu_solve method {method!r} is not ported yet "
-            "(ROADMAP.md, modules to port, item 2)")
+    _check_method("triu_solve", method)
     x = _triu_solve_blocked(U, y)
     dcheck_finite(x, "triu_solve x (singular diagonal?)")
     return x
+
+
+def tril_t_solve(L: torch.Tensor, y: torch.Tensor,
+                 method: str = "block") -> torch.Tensor:
+    """Solve Lᵀ @ x = y."""
+    return triu_solve(L.transpose(-1, -2), y, method=method)
+
+
+def triu_t_solve(U: torch.Tensor, y: torch.Tensor,
+                 method: str = "block") -> torch.Tensor:
+    """Solve Uᵀ @ x = y."""
+    return tril_solve(U.transpose(-1, -2), y, method=method)

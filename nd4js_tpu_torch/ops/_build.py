@@ -35,10 +35,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of csrc/*.cu: every pointer and the stream as c_void_p
 _SIGNATURES = {
+    "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _P]),
+    "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
     "nd4js_house_panel_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "nd4js_house_panel_f64": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "nd4js_qr_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_qr_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_lu_panel_f32": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_lu_panel_f64": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_lu_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_lu_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
 }
 
 _built = None
