@@ -454,8 +454,13 @@ def phase3(gen):
     check(orth <= otol, f"qr_decomp(method='auto'): max |QᵀQ - I| = "
           f"{orth:.3e} <= {otol:.3e}")
     # why auto chose as it did: CholeskyQR2's defect per matrix, against
-    # the contract, beside each matrix's condition number
-    qf, _ = qr_mod._qr_cholqr2_flat(a, True)
+    # the contract, beside each matrix's condition number. Its Q·R = A
+    # holds at any κ, so its result is gated here too, whichever branch
+    # auto kept.
+    qf, rf = qr_mod._qr_cholqr2_flat(a, True)
+    recon = maxabs(torch.matmul(qf, rf) - a)
+    check(recon <= tol, f"CholeskyQR2 (32, 512, 512): max |Q·R - A| = "
+          f"{recon:.3e} <= {tol:.3e} (bench.py:294)")
     defect = (torch.matmul(qf.mT, qf) - eye).abs().amax(dim=(-2, -1)).cpu()
     sv = np.linalg.svd(a.double().cpu().numpy(), compute_uv=False)
     kappa = sv[:, 0] / sv[:, -1]
@@ -520,7 +525,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512):
     lb, ln = leaf.shape[0], leaf.shape[-1]
     eye_leaf = torch.eye(ln, device=DEVICE).expand(lb, ln, ln)
     cl_flops = lb * 2 / 3 * ln ** 3            # factor n³/3 + inverse n³/3
-    cl_bytes = 4 * 3 * lb * ln * ln            # A read, L and L⁻¹ written
+    # only A's lower triangle is read; L and L⁻¹ are written dense
+    cl_bytes = 4 * lb * (ln * (ln + 1) // 2 + 2 * ln * ln)
     lp_flops = nb * (m * bw ** 2 - bw ** 3 / 3)
     lp_bytes = nb * (4 * 2 * m * bw + 4 * m)   # panel in and out, rank
     gb, gn = spd2.shape[0], spd2.shape[-1]

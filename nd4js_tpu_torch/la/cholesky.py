@@ -17,13 +17,12 @@ from ..config import default_float_for
 from ..convert import as_tensor
 from ..core.debug import dassert, dcheck_finite
 from ..core.mm import mm, mt
-from ..ops.chol_leaf import chol_leaf
+from ..ops.chol_leaf import LEAF, chol_leaf
 from .tri import tril_solve, tril_t_solve
 
 __all__ = ["cholesky_decomp", "cholesky_solve"]
 
 _BASE = 16         # leaf width on the CPU, as the JAX package uses there
-_LEAF_CUDA = 64    # leaf width on the card: the kernel's widest
 
 
 def _chol_rec(a: torch.Tensor, with_inv: bool, base: int | None = None):
@@ -48,7 +47,7 @@ def _chol_rec(a: torch.Tensor, with_inv: bool, base: int | None = None):
     ``_chol_inv_core(a, base=…)``.
     """
     if base is None:
-        base = _LEAF_CUDA if a.is_cuda else _BASE
+        base = LEAF if a.is_cuda else _BASE
     return _chol_rec_inner(a, with_inv, base)
 
 
