@@ -19,12 +19,15 @@ Phases, each announced by a flushed line at its start and its end:
    bench.py's 512² suite, ``qr_lstsq_fused`` on bench.py's config 1
    (256², 4 right-hand sides), config 2 (``lu_solve_fused``,
    ``cholesky_decomp(inv=True)`` and ``cholesky_solve`` on 1024 SPD
-   systems of 128²), and the suite's ``lu_decomp``, ``cholesky_decomp``
-   and ``qr_decomp(method="auto")`` entries, each held to bench.py's
-   gates;
+   systems of 128²), the suite's ``lu_decomp``, ``cholesky_decomp``
+   and ``qr_decomp(method="auto")`` entries, config 4's ``eigh`` of one
+   1024² symmetric matrix, and ``eigh_tridiag_dc`` of the (32, 512, 512)
+   Gram batch that the SVD's spectral preconditioner will hand it, each
+   held to bench.py's gates;
 4. times with CUDA events: each kernel, its plain version, one PyTorch
-   library call that computes the same function, and the bound; and the
-   wall time of each bench.py entry above.
+   library call that computes the same function where there is one, and
+   the bound; and the wall time of each bench.py entry above, the eigh
+   paths beside ``torch.linalg.eigh`` on the same input.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import importlib
 import json
 import os
 import signal
@@ -49,8 +53,12 @@ import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 from nd4js_tpu_torch import la
 from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
+from nd4js_tpu_torch.la import sytrd as sytrd_mod, tridiag_dc
 from nd4js_tpu_torch.ops import _build, chol_leaf as cl, house_panel as hp, \
-    house_stripe as hs, lu_panel as lp
+    house_stripe as hs, lu_panel as lp, sytrd_panel as sp
+
+# the module, which la's function of the same name shadows as an attribute
+eigh_mod = importlib.import_module("nd4js_tpu_torch.la.eigh")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -64,7 +72,24 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # a solve's backward error against its reference's: two Householder solves
 # that round differently stay within 1.4x of each other on random systems
 BACKWARD_MULT = 8
-KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv")
+KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv",
+           "sytrd_panel")
+# sytrd_panel against its plain version: SYTRD_C·eps·m·max|C| on the
+# trailing block, W, d and e, SYTRD_C·eps·m on V and taus (scale-free).
+# The two sum in different orders. At the main path's shapes (64 of 512 or
+# 1024 columns) the plain version in float32 is within about eps·m·max|C|
+# of itself in float64 (tests/test_torch_sytrd.py), so two float32
+# roundings differ by about twice that. Late in a reduction (bk close to
+# m) the entries grow sensitive to rounding, by a factor that depends on
+# the input; 32 covers the inputs here. Every panel is also held to its
+# contract, which does not depend on that: H = Π(I − τ·v·vᵀ) orthogonal
+# to BACKWARD_C·eps·m and Hᵀ·C·H equal to (d, e) beside the trailing block
+# to BACKWARD_C·eps·m·max|C| (at most 0.15 of each on the CPU).
+SYTRD_C = 32
+BACKWARD_C = 2
+# the TPU reference's config 4 eigh residual (BENCH_r05.json), printed
+# beside the port's; the gate is bench.py's
+TPU_EIGH_RESIDUAL = 4.351e-4
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -321,11 +346,107 @@ def phase2_lu(rng, errs):
           "lu_gesv on an exactly singular system: x is not finite")
 
 
+def symmetric(rng, shape):
+    a = rng.standard_normal(shape)
+    return (a + np.swapaxes(a, -1, -2)) / 2
+
+
+def gram(rng, shape):
+    """aᵀa of a seeded normal batch, formed on the card in float32, as
+    svd_gram's spectral preconditioner forms it (la/svd_gram.py:243)."""
+    a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE,
+                                                        torch.float32)
+    return torch.matmul(a.mT, a)
+
+
+def tau_zero_blocks(rng, nb, m):
+    """Symmetric blocks whose first half is tridiagonal and decoupled from
+    the second: every reflector of the first m/2 − 1 columns has τ = 0."""
+    a = symmetric(rng, (nb, m, m))
+    h = m // 2
+    a[:, h:, :h] = 0
+    a[:, :h, h:] = 0
+    a[:, :h, :h] *= np.triu(np.tril(np.ones((h, h)), 1), -1)
+    return a
+
+
+def panel_backward_error(c, out, bk):
+    """(max|Hᵀ·C·H − T|, max|Hᵀ·H − I|) in float64: H = H_0···H_{bk−1}
+    from V and taus, T the tridiagonal columns d, e beside the trailing
+    block."""
+    trail, V, _, taus, d, e = (x.double() for x in out)
+    c = c.double()
+    nb, m, _ = c.shape
+    eye = torch.eye(m, dtype=torch.float64, device=c.device)
+    H = eye.repeat(nb, 1, 1)
+    for j in range(bk):
+        v = V[:, :, j:j + 1]
+        H = H - taus[:, j, None, None] * torch.matmul(torch.matmul(H, v),
+                                                      v.mT)
+    T = torch.zeros_like(c)
+    i = torch.arange(bk, device=c.device)
+    T[:, i, i] = d
+    T[:, i + 1, i] = e
+    T[:, i, i + 1] = e
+    T[:, bk:, bk:] = trail
+    return (maxabs(torch.matmul(torch.matmul(H.mT, c), H) - T),
+            maxabs(torch.matmul(H.mT, H) - eye))
+
+
+def phase2_sytrd(rng, errs):
+    for what, c, bk in (
+            ("(1, 1024, 1024)", torch.from_numpy(symmetric(
+                rng, (1, 1024, 1024))).to(DEVICE, torch.float32), 64),
+            ("Gram (32, 512, 512)", gram(rng, (32, 512, 512)), 64),
+            ("(3, 100, 100)", torch.from_numpy(symmetric(
+                rng, (3, 100, 100))).to(DEVICE), 63),
+            ("τ = 0 (2, 96, 96)", torch.from_numpy(tau_zero_blocks(
+                rng, 2, 96)).to(DEVICE, torch.float32), 63),
+            ("τ = 0 (2, 96, 96)", torch.from_numpy(tau_zero_blocks(
+                rng, 2, 96)).to(DEVICE), 63)):
+        dtype = c.dtype
+        what = f"sytrd_panel {what} {dtype} bk={bk}"
+        got = sp.sytrd_panel(c, bk)
+        want = sp.sytrd_panel_ref(c, bk)
+        m = c.shape[-1]
+        cmax = maxabs(c)
+        unit = SYTRD_C * torch.finfo(dtype).eps * m
+        worst = 0.0
+        for name, g, w, scale in zip(
+                ("C_trailing", "V", "W", "taus", "d", "e"), got, want,
+                (cmax, 1.0, cmax, 1.0, cmax, cmax)):
+            err = maxabs(g - w)
+            worst = max(worst, err / scale)
+            check(tuple(g.shape) == tuple(w.shape) and err <= unit * scale,
+                  f"{what}: max |{name} - plain| = {err:.3e} <= "
+                  f"{unit * scale:.3e}")
+            if dtype == torch.float32:
+                errs["sytrd_panel"] = max(errs["sytrd_panel"], err)
+        check(torch.equal(got[0], got[0].mT),
+              f"{what}: trailing block exactly symmetric")
+        resid, orth = panel_backward_error(c, got, bk)
+        eps = torch.finfo(dtype).eps
+        check(resid <= BACKWARD_C * eps * m * cmax
+              and orth <= BACKWARD_C * eps * m,
+              f"{what}: max |Hᵀ·C·H - T| = {resid:.3e} <= "
+              f"{BACKWARD_C * eps * m * cmax:.3e}, max |HᵀH - I| = "
+              f"{orth:.3e} <= {BACKWARD_C * eps * m:.3e}")
+        say(f"{what}: worst error {worst / unit * SYTRD_C:.3f} eps·m "
+            f"(·max|C| where it scales), the tolerance {SYTRD_C}")
+        if "τ = 0" in what:
+            h = m // 2 - 1
+            check(maxabs(got[3][:, :h]) == 0.0 and torch.equal(
+                got[5][:, :h], torch.diagonal(c, -1, 1, 2)[:, :h]),
+                f"{what}: τ = 0 and e = the subdiagonal on the first {h} "
+                "columns")
+
+
 def phase2(rng):
     errs = dict.fromkeys(KERNELS, 0.0)
     phase2_qr(rng, errs)
     phase2_chol(rng, errs)
     phase2_lu(rng, errs)
+    phase2_sytrd(rng, errs)
     return errs
 
 
@@ -340,6 +461,7 @@ def square_solve_gate(a, x, y, what, where="bench.py:362"):
 def reset_counts() -> None:
     hp.launches = hs.launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
+    sp.launches = 0
     qr_mod.auto_branches.update(cholqr2=0, householder=0)
 
 
@@ -347,7 +469,7 @@ def read_counts() -> dict:
     torch.cuda.synchronize()
     return {"house_panel": hp.launches, "qr_gesv": hs.launches,
             "chol_leaf": cl.launches, "lu_panel": lp.launches["lu_panel"],
-            "lu_gesv": lp.launches["lu_gesv"]}
+            "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches}
 
 
 def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
@@ -472,10 +594,58 @@ def phase3(gen):
         f"{int((kappa > torch.finfo(torch.float32).eps ** -0.5).sum())} "
         "over 1/√eps")
 
+    eig = phase3_eigh(totals)
+
     say(f"launches on the main path: {totals}")
     check(all(c > 0 for c in totals.values()),
           "every kernel of the path was launched")
-    return totals, (a, y), (a1, y1), cfg2, spd
+    return totals, (a, y), (a1, y1), cfg2, spd, eig
+
+
+def eigh_gate(what, a, w, v, panels, totals):
+    """bench.py's config 4 gate max|V·diag(w)·Vᵀ − A| ≤ 1e-4·max|A|·√N
+    (bench.py:433-436), w ascending and finite, w against a float64
+    eigvalsh on the host, and one sytrd_panel launch per 64 columns."""
+    check_counts(what, read_counts(), {"sytrd_panel": panels}, totals)
+    n = a.shape[-1]
+    check(tuple(w.shape) == tuple(a.shape[:-1])
+          and tuple(v.shape) == tuple(a.shape)
+          and bool(torch.isfinite(w).all() and torch.isfinite(v).all())
+          and bool((torch.diff(w, dim=-1) >= 0).all()),
+          f"{what}: w {tuple(w.shape)} ascending, V {tuple(v.shape)}, "
+          "finite")
+    amax = maxabs(a)
+    tol = 1e-4 * amax * n ** 0.5
+    recon = maxabs(torch.matmul(v * w[..., None, :], v.mT) - a)
+    check(recon <= tol, f"{what}: max |V·diag(w)·Vᵀ - A| = {recon:.3e} <= "
+          f"{tol:.3e} (bench.py:433)")
+    orth = maxabs(torch.matmul(v.mT, v) - torch.eye(n, device=DEVICE))
+    w64 = np.linalg.eigvalsh(a.double().cpu().numpy())
+    werr = float(np.abs(w.double().cpu().numpy() - w64).max())
+    check(werr <= tol, f"{what}: max |w - float64 eigvalsh on the host| = "
+          f"{werr:.3e} <= {tol:.3e}")
+    say(f"{what}: max |VᵀV - I| = {orth:.3e}; w from {float(w.min()):.6e} "
+        f"to {float(w.max()):.6e}")
+    return recon
+
+
+def phase3_eigh(totals):
+    """Config 4's eigh (bench.py:427-442): la.eigh with method 'auto',
+    which takes 'dc' at 1024, on (s + sᵀ)/2 of a seeded normal; and
+    eigh_tridiag_dc of the (32, 512, 512) Gram batch."""
+    rng = np.random.default_rng(SEED + 4)
+    n = 1024
+    sym = torch.from_numpy(symmetric(rng, (n, n))).to(DEVICE, torch.float32)
+    reset_counts()
+    w, v = la.eigh(sym)
+    recon = eigh_gate("config 4 eigh (1024, 1024)", sym, w, v, 16, totals)
+    say(f"config 4 eigh residual {recon:.3e}; the TPU reference's "
+        f"{TPU_EIGH_RESIDUAL:.3e} (BENCH_r05.json)")
+    g = gram(rng, (32, 512, 512))
+    reset_counts()
+    w, v = la.eigh_tridiag_dc(g)
+    eigh_gate("eigh_tridiag_dc Gram (32, 512, 512)", g, w, v, 8, totals)
+    return sym, g
 
 
 def config2_inputs(gen):
@@ -494,6 +664,74 @@ def config2(spd, y):
     return xl, la.cholesky_solve(L, y, l_inv=Li)
 
 
+def sytrd_panel_cost(c, bk: int):
+    """(flops, bytes) of one sytrd_panel call on c (Nb, m, m), as the kernel
+    does it: per column j the correction of rows j.. (4·j·(m − j)), the
+    product with C of rows j + 1.. (2·m·(m − j − 1)), Wᵀv and Vᵀv
+    (4·j·(m − j − 1)), their corrections (4·j·m) and O(m) for the
+    reflector and w; then the upper triangle of the trailing block, 4·bk + 2
+    each. Bytes: C read once, the trailing block, V, W, taus, d and e
+    written once."""
+    nb, m, _ = c.shape
+    flops = sum(4 * j * (m - j) + 2 * m * (m - j - 1) + 4 * j * (m - j - 1)
+                + 4 * j * m + 8 * m for j in range(bk))
+    mt = m - bk
+    flops += (4 * bk + 2) * mt * (mt + 1) // 2
+    nbytes = c.element_size() * (m * m + mt * mt + 2 * m * bk + 3 * bk)
+    return nb * flops, nb * nbytes
+
+
+@contextlib.contextmanager
+def host_timers(targets):
+    """Replace each (module, name) function by one that synchronises
+    around every call and adds its host milliseconds to spent[name];
+    restore them on exit."""
+    spent = {name: 0.0 for _, name in targets}
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[_name] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def eigh_breakdown(what, fn):
+    """Where one call's time goes: sytrd (and its sytrd_panel launches),
+    the tridiagonal D&C (its Jacobi leaves and its merges), and the rest
+    (the back-transform GEMM), by host clock with a synchronise around
+    each part."""
+    fn()
+    torch.cuda.synchronize()
+    with host_timers([(eigh_mod, "sytrd"), (sytrd_mod, "sytrd_panel"),
+                      (eigh_mod, "tridiag_eigh_dc"),
+                      (tridiag_dc, "_base_eigh"),
+                      (tridiag_dc, "_merge")]) as spent:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    rest = total - spent["sytrd"] - spent["tridiag_eigh_dc"]
+    say(f"{what} breakdown, host ms: whole {total:.3f}; sytrd "
+        f"{spent['sytrd']:.3f}, of which sytrd_panel "
+        f"{spent['sytrd_panel']:.3f}; tridiagonal D&C "
+        f"{spent['tridiag_eigh_dc']:.3f}, of which Jacobi leaves "
+        f"{spent['_base_eigh']:.3f} and merges {spent['_merge']:.3f}; "
+        f"back-transform and the rest {rest:.3f}")
+
+
 def wall_ms(fn):
     """Host-clock milliseconds of ``fn`` to a synchronised end, three
     times after one warm-up call."""
@@ -508,7 +746,7 @@ def wall_ms(fn):
     return out
 
 
-def phase4(counts, errs, batch, cfg1, cfg2, spd512):
+def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
     a, _ = batch
     a1, y1 = cfg1
     spd2, y2 = cfg2
@@ -533,6 +771,12 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512):
     gk = y2.shape[-1]
     lg_flops = gb * (2 / 3 * gn ** 3 + 2 * gn ** 2 * gk)
     lg_bytes = 4 * gb * (gn * (gn + gk) + gn * gk)
+    # sytrd_panel: the first panel of config 4's eigh and of the Gram
+    # batch's, each as sytrd gives it, (A + Aᵀ)/2
+    sym, g = eig
+    c4 = ((sym + sym.mT) * 0.5)[None].contiguous()
+    cg = ((g + g.mT) * 0.5).contiguous()
+    sp_flops, sp_bytes = sytrd_panel_cost(c4, 64)
     rows = []
     for name, src, repl, kern, plain, lib, flops, nbytes, shape in (
             ("house_panel", "nd4js_tpu_torch/csrc/house_panel.cu",
@@ -561,18 +805,33 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512):
              "nd4js_tpu/ops/lu_panel.py:274",
              lambda: lp.lu_gesv(spd2, y2), lambda: lp.lu_gesv_ref(spd2, y2),
              lambda: torch.linalg.solve(spd2, y2), lg_flops, lg_bytes,
-             list(spd2.shape) + [gk])):
+             list(spd2.shape) + [gk]),
+            # no single PyTorch call computes a latrd panel: library_ms null
+            ("sytrd_panel", "nd4js_tpu_torch/csrc/sytrd_panel.cu",
+             "nd4js_tpu/ops/sytrd_panel.py:138",
+             lambda: sp.sytrd_panel(c4, 64), lambda: sp.sytrd_panel_ref(c4, 64),
+             None, sp_flops, sp_bytes, list(c4.shape) + [64])):
         t_bound, by = bound(flops, nbytes)
         row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                "launches": counts[name], "max_abs_err": errs[name],
                "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
                "bound_ms": t_bound, "bound_by": by,
-               "library_ms": cuda_ms(lib, 10), "shape": shape,
-               "dtype": "float32"}
+               "library_ms": cuda_ms(lib, 10) if lib else None,
+               "shape": shape, "dtype": "float32"}
+        lib_txt = "none" if lib is None else f"{row['library_ms']:.4f} ms"
         say(f"{name} {shape}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            f"{row['plain_ms']:.4f} ms, library {lib_txt}, "
             f"bound {t_bound:.5f} ms ({by})")
         rows.append(row)
+    # sytrd_panel also at the Gram batch's first panel
+    t_bound, by = bound(*sytrd_panel_cost(cg, 64))
+    other = {"shape": list(cg.shape) + [64],
+             "ms": cuda_ms(lambda: sp.sytrd_panel(cg, 64), 10),
+             "plain_ms": cuda_ms(lambda: sp.sytrd_panel_ref(cg, 64), 3),
+             "bound_ms": t_bound, "bound_by": by}
+    rows[-1]["other_shapes"] = [other]
+    say(f"sytrd_panel {other['shape']}: kernel {other['ms']:.4f} ms, plain "
+        f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
 
     a, y = batch
 
@@ -585,7 +844,26 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512):
             "lu_decomp": wall_ms(lambda: la.lu_decomp(a)),
             "cholesky_decomp": wall_ms(lambda: la.cholesky_decomp(spd512)),
             "qr_decomp(method='auto')":
-                wall_ms(lambda: la.qr_decomp(a, method="auto"))}
+                wall_ms(lambda: la.qr_decomp(a, method="auto")),
+            "config 4 eigh (1024, 1024)": wall_ms(lambda: la.eigh(sym)),
+            "torch.linalg.eigh (1024, 1024), yardstick":
+                wall_ms(lambda: torch.linalg.eigh(sym)),
+            "eigh_tridiag_dc Gram (32, 512, 512)":
+                wall_ms(lambda: la.eigh_tridiag_dc(g)),
+            "torch.linalg.eigh Gram (32, 512, 512), yardstick":
+                wall_ms(lambda: torch.linalg.eigh(g))}
+    eigh_breakdown("config 4 eigh (1024, 1024)", lambda: la.eigh(sym))
+    eigh_breakdown("eigh_tridiag_dc Gram (32, 512, 512)",
+                   lambda: la.eigh_tridiag_dc(g))
+    # sytrd_panel on each of config 4's 16 panel shapes, against the whole
+    # sytrd on the device
+    spanels = [cuda_ms(lambda p=c4[:, k:, k:].contiguous(),
+                       b=min(64, 1023 - k): sp.sytrd_panel(p, b), 3)
+               for k in range(0, 1023, 64)]
+    say("sytrd_panel on config 4's panels (1, 1024|960|…|64, …) ms: "
+        + ", ".join(f"{t:.4f}" for t in spanels)
+        + f"; sum {sum(spanels):.4f}; whole sytrd on the device "
+        f"{cuda_ms(lambda: sytrd_mod.sytrd(sym), 3):.4f}")
     # where the headline's time goes: its four house_panel launches, one
     # per panel shape, against the whole call on the device
     panels = [cuda_ms(lambda p=a[:, k:, k:k + 128].contiguous():
@@ -620,9 +898,9 @@ def main():
     with phase("2 kernels against their plain versions"):
         errs = phase2(rng)
     with phase("3 main path"):
-        counts, batch, cfg1, cfg2, spd512 = phase3(gen)
+        counts, batch, cfg1, cfg2, spd512, eig = phase3(gen)
     with phase("4 times"):
-        rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512)
+        rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():

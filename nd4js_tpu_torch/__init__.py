@@ -11,7 +11,10 @@ kernel's plain PyTorch version runs in its place.
 Ported so far: batched Householder QR and QR least squares
 (``la.qr_decomp``, ``la.qr_decomp_full``, ``la.qr_lstsq``,
 ``la.qr_solve``, ``la.qr_lstsq_fused``) with the kernels ``house_panel``
-and ``qr_gesv``.
+and ``qr_gesv``; LU, Cholesky and determinants with ``chol_leaf``,
+``lu_panel`` and ``lu_gesv``; symmetric eigen (``la.eigh``,
+``la.eigh_jacobi``, ``la.eigh_tridiag_dc``, ``la.tridiag_eigh_dc``) with
+``sytrd_panel``.
 """
 from . import config
 from . import la

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..config import default_float_for
+from ..convert import as_tensor
 from ..core.mm import mm
 
 __all__ = ["matmul2"]
@@ -25,8 +26,10 @@ def _super_dtype(*dtypes) -> torch.dtype:
     return max(dtypes, key=_RANK.__getitem__)
 
 
-def matmul2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched GEMM with broadcasting over leading dims."""
+def matmul2(a, b, device=None) -> torch.Tensor:
+    """Batched GEMM with broadcasting over leading dims. Array-likes go to
+    ``device`` (default ``config.default_device``)."""
+    a, b = as_tensor(a, device), as_tensor(b, device)
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError("matmul2 expects ndim >= 2 operands")
     if a.shape[-1] != b.shape[-2]:

@@ -28,7 +28,7 @@ from ..core.mm import mm, mt
 from ..ops.house_panel import house_panel
 from ..ops.house_stripe import qr_gesv
 from .cholesky import _chol_inv_core
-from .tri import _tril_inv_core, _triu_solve_blocked, triu_solve
+from .tri import _tril_inv_core, _triu_solve, _triu_solve_blocked
 
 __all__ = ["qr_decomp", "qr_decomp_full", "qr_lstsq", "qr_solve",
            "qr_lstsq_fused"]
@@ -252,7 +252,7 @@ def qr_lstsq(q, r, y, device=None):
     @batched((2, 2, 2))
     def _go(q, r, y):
         qty = mm(mt(q[..., :k]), y.to(q.dtype))
-        return triu_solve.core(r[..., :k, :k], qty, method="block")
+        return _triu_solve.core(r[..., :k, :k], qty, "block")
 
     return _go(q, r, y)
 

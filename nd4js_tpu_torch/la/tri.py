@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..config import default_float_for
+from ..convert import as_tensor
 from ..core.batch import batched
 from ..core.debug import dcheck_finite
 from ..core.mm import mm
@@ -20,14 +22,16 @@ __all__ = ["tril", "triu", "tril_solve", "triu_solve", "tril_t_solve",
            "triu_t_solve"]
 
 
-def tril(a: torch.Tensor, k: int = 0) -> torch.Tensor:
-    """Lower-triangular part."""
-    return torch.tril(a, k)
+def tril(a, k: int = 0, device=None) -> torch.Tensor:
+    """Lower-triangular part. An array-like ``a`` goes to ``device``
+    (default ``config.default_device``)."""
+    return torch.tril(as_tensor(a, device), k)
 
 
-def triu(a: torch.Tensor, k: int = 0) -> torch.Tensor:
-    """Upper-triangular part."""
-    return torch.triu(a, k)
+def triu(a, k: int = 0, device=None) -> torch.Tensor:
+    """Upper-triangular part. An array-like ``a`` goes to ``device``
+    (default ``config.default_device``)."""
+    return torch.triu(as_tensor(a, device), k)
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -162,33 +166,49 @@ def _check_method(name: str, method: str) -> None:
             "(ROADMAP.md, modules to port, item 2)")
 
 
+def _operands(T, y, device):
+    """T and y as tensors on one device (an array-like goes to ``device``,
+    default ``config.default_device``), in their common floating dtype."""
+    T, y = as_tensor(T, device), as_tensor(y, device)
+    dtype = default_float_for(torch.promote_types(T.dtype, y.dtype))
+    return T.to(dtype), y.to(dtype)
+
+
 @batched((2, 2))
-def tril_solve(L: torch.Tensor, y: torch.Tensor,
-               method: str = "block") -> torch.Tensor:
-    """Solve L @ x = y with L lower-triangular (..., N, N), y (..., N, K);
-    leading dims broadcast. Only ``method="block"`` is ported so far."""
+def _tril_solve(L: torch.Tensor, y: torch.Tensor, method: str):
     _check_method("tril_solve", method)
     return _tril_solve_blocked(L, y)
 
 
 @batched((2, 2))
-def triu_solve(U: torch.Tensor, y: torch.Tensor,
-               method: str = "block") -> torch.Tensor:
-    """Solve U @ x = y with U upper-triangular (..., N, N), y (..., N, K);
-    leading dims broadcast. Only ``method="block"`` is ported so far."""
+def _triu_solve(U: torch.Tensor, y: torch.Tensor, method: str):
     _check_method("triu_solve", method)
     x = _triu_solve_blocked(U, y)
     dcheck_finite(x, "triu_solve x (singular diagonal?)")
     return x
 
 
-def tril_t_solve(L: torch.Tensor, y: torch.Tensor,
-                 method: str = "block") -> torch.Tensor:
+def tril_solve(L, y, method: str = "block", device=None) -> torch.Tensor:
+    """Solve L @ x = y with L lower-triangular (..., N, N), y (..., N, K);
+    leading dims broadcast. Only ``method="block"`` is ported so far.
+    Array-likes go to ``device`` (default ``config.default_device``)."""
+    return _tril_solve(*_operands(L, y, device), method)
+
+
+def triu_solve(U, y, method: str = "block", device=None) -> torch.Tensor:
+    """Solve U @ x = y with U upper-triangular (..., N, N), y (..., N, K);
+    leading dims broadcast. Only ``method="block"`` is ported so far.
+    Array-likes go to ``device`` (default ``config.default_device``)."""
+    return _triu_solve(*_operands(U, y, device), method)
+
+
+def tril_t_solve(L, y, method: str = "block", device=None) -> torch.Tensor:
     """Solve Lᵀ @ x = y."""
-    return triu_solve(L.transpose(-1, -2), y, method=method)
+    L, y = _operands(L, y, device)
+    return _triu_solve(L.transpose(-1, -2), y, method)
 
 
-def triu_t_solve(U: torch.Tensor, y: torch.Tensor,
-                 method: str = "block") -> torch.Tensor:
+def triu_t_solve(U, y, method: str = "block", device=None) -> torch.Tensor:
     """Solve Uᵀ @ x = y."""
-    return tril_solve(U.transpose(-1, -2), y, method=method)
+    U, y = _operands(U, y, device)
+    return _tril_solve(U.transpose(-1, -2), y, method)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "nd4js_lu_panel_f64": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I, _I, _I, _P]),
+    "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I, _I, _I, _P]),
 }
 
 _built = None

@@ -1,7 +1,8 @@
 """The port's core helpers and triangular kernels held against the JAX
 package on the CPU: config dtype rules and precision pins, leading-dim
 broadcasting, debug checks, norm_fro, matmul2, _tril_inv_core,
-_triu_solve_blocked and triu_solve, and convert's dtype rules.
+_triu_solve_blocked and triu_solve, convert's dtype rules, and numpy
+input to tril, triu, the triangular solves, matmul2 and norm_fro.
 
 Inputs come from numpy with a fixed seed and go to both packages."""
 import numpy as np
@@ -110,12 +111,13 @@ def test_debug_checks_raise_only_when_enabled(monkeypatch):
         debug.dassert(torch.tensor([True, False]), "cond")
 
 
-@pytest.mark.parametrize("axis", [None, -1, (-2, -1), 0])
+@pytest.mark.parametrize("axis", [None, -1, (-2, -1), 0, ()])
 @pytest.mark.parametrize("scale", [1.0, 1e200, 0.0])
 def test_norm_fro_matches_jax(axis, scale):
     """Scaled two-pass norm: both packages do the same float64 operations;
     tolerance 1e-14 relative for summation order. Entries of 1e200 would
-    overflow an unscaled sum of squares."""
+    overflow an unscaled sum of squares. ``axis=()`` reduces nothing:
+    |a| in a's shape."""
     rng = np.random.default_rng(3)
     a = rng.standard_normal((3, 4, 5)) * scale
     want = np.asarray(j_norm_fro(a, axis=axis))
@@ -146,6 +148,45 @@ def test_matmul2_matches_jax(da, db, want):
     assert str(got.dtype) == f"torch.{ref.dtype.name}"
     rtol = 1e-5 if want == torch.float32 else 1e-13
     np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=rtol)
+
+
+def _tri_operands(rng, upper):
+    t = rng.standard_normal((2, 40, 40)) * 0.1 + 4 * np.eye(40)
+    return (np.triu(t) if upper else np.tril(t)), \
+        rng.standard_normal((2, 40, 3))
+
+
+_ARRAY_LIKE_ARGS = {
+    "tril": lambda rng: (rng.standard_normal((3, 5, 4)),),
+    "triu": lambda rng: (rng.standard_normal((3, 5, 4)),),
+    "tril_solve": lambda rng: _tri_operands(rng, False),
+    "triu_solve": lambda rng: _tri_operands(rng, True),
+    "tril_t_solve": lambda rng: _tri_operands(rng, False),
+    "triu_t_solve": lambda rng: _tri_operands(rng, True),
+    "matmul2": lambda rng: (rng.standard_normal((2, 2)),
+                            rng.standard_normal((2, 2))),
+    "norm_fro": lambda rng: (rng.standard_normal((3, 4)),),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ARRAY_LIKE_ARGS))
+@pytest.mark.parametrize("explicit_device", [True, False])
+def test_array_likes_match_jax(name, explicit_device, monkeypatch):
+    """numpy input, as the JAX package takes it: with ``device="cpu"``,
+    and without one, where it goes to ``config.default_device`` (set to
+    the CPU here). Values to 1e-13 relative (summation order)."""
+    from nd4js_tpu import la as jla
+    from nd4js_tpu_torch import la
+    args = _ARRAY_LIKE_ARGS[name](np.random.default_rng(5))
+    want = np.asarray(getattr(jla, name)(*args))
+    if explicit_device:
+        got = getattr(la, name)(*args, device=CPU)
+    else:
+        monkeypatch.setattr(config, "default_device", CPU)
+        got = getattr(la, name)(*args)
+    assert isinstance(got, torch.Tensor) and got.device.type == CPU
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
 
 
 def test_matmul2_rejects_bad_operands():

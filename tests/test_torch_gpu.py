@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its QR, Cholesky and LU slices on the card.
+"""The port's CUDA kernels and its QR, Cholesky, LU and symmetric eigen
+slices on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine without
 them, skipping the JAX-based tests/conftest.py:
@@ -13,7 +14,9 @@ solve, and its backward error, which does not loosen with κ(A), within
 N·eps and 8× the plain version's. ``chol_leaf``'s L and L⁻¹ within the
 same TOL·max|A| and TOL·max|L⁻¹|; ``lu_panel``'s factored panel within
 TOL·max|A| and its rank exactly equal (the kernel and the plain version
-round each product and difference alike).
+round each product and difference alike); ``sytrd_panel`` within
+SYTRD_C·eps·m·max|C| (reason below), its trailing block exactly
+symmetric, and backward stable (``panel_backward_error``).
 """
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from nd4js_tpu_torch.ops import chol_leaf as cl
 from nd4js_tpu_torch.ops import house_panel as hp
 from nd4js_tpu_torch.ops import house_stripe as hs
 from nd4js_tpu_torch.ops import lu_panel as lp
+from nd4js_tpu_torch.ops import sytrd_panel as sp
 
 pytestmark = pytest.mark.gpu
 
@@ -274,3 +278,158 @@ def test_lu_chol_slice_on_the_card_matches_the_cpu(cuda, dtype):
         assert float((q.mT @ q - eye).abs().max()) <= \
             4 * torch.finfo(dtype).eps * 300
     assert qr.auto_branches["cholqr2"] >= 2
+
+
+# sytrd_panel, kernel against plain version: SYTRD_C·eps·m·max|C| on the
+# trailing block, W, d and e, and SYTRD_C·eps·m on V and taus, which are
+# scale-free. The two sum in different orders. At the main path's shapes
+# (64 of 512 or 1024 columns) the plain version in float32 is within about
+# eps·m·max|C| of itself in float64 (tests/test_torch_sytrd.py), so two
+# float32 roundings differ by about twice that. Late in a reduction (bk
+# close to m) the entries grow sensitive to rounding, by a factor that
+# depends on the input; 32 covers the inputs here. Every panel is also held
+# to its contract, which does not depend on that: see panel_backward_error.
+SYTRD_C = 32
+# H = Π(I − τ·v·vᵀ) orthogonal to BACKWARD_C·eps·m, and Hᵀ·C·H equal to the
+# tridiagonal columns (d, e) beside the trailing block to
+# BACKWARD_C·eps·m·max|C|; at most 0.15 of each on the CPU, float32 and
+# float64, for any seed tried (tests/test_torch_sytrd.py).
+BACKWARD_C = 2
+
+
+def panel_backward_error(c, out, bk):
+    """(max|Hᵀ·C·H − T|, max|Hᵀ·H − I|) in float64 for a panel's outputs:
+    H = H_0···H_{bk−1}, T the tridiagonal columns d, e of the first bk
+    columns and rows, zeros elsewhere beside them, and C_trailing below
+    and right of them."""
+    trail, V, _, taus, d, e = (x.double() for x in out)
+    c = c.double()
+    nb, m, _ = c.shape
+    eye = torch.eye(m, dtype=torch.float64, device=c.device)
+    H = eye.repeat(nb, 1, 1)
+    for j in range(bk):
+        v = V[:, :, j:j + 1]
+        H = H - taus[:, j, None, None] * (H @ v) @ v.mT
+    T = torch.zeros_like(c)
+    i = torch.arange(bk, device=c.device)
+    T[:, i, i] = d
+    T[:, i + 1, i] = e
+    T[:, i, i + 1] = e
+    T[:, bk:, bk:] = trail
+    return (float((H.mT @ c @ H - T).abs().max()),
+            float((H.mT @ H - eye).abs().max()))
+
+
+def assert_panel_backward_stable(c, out, bk):
+    eps = torch.finfo(c.dtype).eps
+    m = c.shape[-1]
+    resid, orth = panel_backward_error(c, out, bk)
+    assert resid <= BACKWARD_C * eps * m * float(c.abs().max()), resid
+    assert orth <= BACKWARD_C * eps * m, orth
+
+
+def _sym(rng, shape):
+    a = rng.standard_normal(shape)
+    return (a + np.swapaxes(a, -1, -2)) / 2
+
+
+def _tau_zero(rng, nb, m):
+    """Symmetric blocks whose first columns are already tridiagonal and
+    whose other half is a separate block: τ = 0 on those columns."""
+    a = _sym(rng, (nb, m, m))
+    h = m // 2
+    a[:, h:, :h] = 0
+    a[:, :h, h:] = 0
+    band = np.triu(np.tril(np.ones((h, h)), 1), -1)
+    a[:, :h, :h] *= band
+    return a
+
+
+def assert_sytrd_panel_close(got, want, c, bk, dtype):
+    m = c.shape[-1]
+    unit = SYTRD_C * torch.finfo(dtype).eps * m
+    cmax = float(c.abs().max())
+    for name, g, w, scale in zip(("C_trailing", "V", "W", "taus", "d", "e"),
+                                 got, want, (cmax, 1, cmax, 1, cmax, cmax)):
+        assert g.shape == w.shape, name
+        err = float((g - w).abs().max())
+        assert err <= unit * scale, (name, err, unit * scale)
+    trail = got[0]
+    assert torch.equal(trail, trail.mT)
+
+
+@pytest.mark.parametrize("shape,bk", [((1, 1024, 1024), 64),
+                                      ((4, 512, 512), 64), ((3, 100, 100), 63),
+                                      ((2, 70, 70), 1), ((2, 33, 33), 7)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sytrd_panel_kernel_matches_plain_version(cuda, shape, bk, dtype):
+    c = _on(cuda, _sym(np.random.default_rng(38), shape), dtype)
+    before = sp.launches
+    got = sp.sytrd_panel(c, bk)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1
+    assert_sytrd_panel_close(got, sp.sytrd_panel_ref(c, bk), c, bk, dtype)
+    assert_panel_backward_stable(c, got, bk)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sytrd_panel_kernel_on_columns_with_tau_zero(cuda, dtype):
+    c = _on(cuda, _tau_zero(np.random.default_rng(39), 2, 96), dtype)
+    got = sp.sytrd_panel(c, 63)
+    want = sp.sytrd_panel_ref(c, 63)
+    assert_sytrd_panel_close(got, want, c, 63, dtype)
+    assert_panel_backward_stable(c, got, 63)
+    assert float(got[3][:, :47].abs().max()) == 0.0
+    assert float(got[3][:, 48:].abs().min()) > 0.0
+    assert torch.equal(got[5][:, :47], torch.diagonal(c, -1, 1, 2)[:, :47])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eigh_slice_on_the_card_matches_the_cpu(cuda, dtype):
+    """eigh (dc, at n = 130 over three panels, and jacobi), eigh_tridiag_dc
+    on a batch and tridiag_eigh_dc on the card against the same calls on
+    the CPU: w directly, V by its contract (orthogonality and
+    reconstruction). Reconstruction within 100·eps·n·max|A| in float32 and
+    the JAX package's own 1e-9·n·max|A| for its dc path in float64, where
+    its eps-scale jitter of close poles leaves more than Jacobi does."""
+    rng = np.random.default_rng(40)
+    eps = torch.finfo(dtype).eps
+    rtol = 100 * eps if dtype == torch.float32 else 1e-9
+    a = _sym(rng, (130, 130))
+    b = _sym(rng, (2, 3, 70, 70))
+    before = sp.launches
+    for arr, fn, panels in ((a, la.eigh, 3), (b, la.eigh_tridiag_dc, 2),
+                            (b[0, 0, :20, :20], la.eigh, 0)):
+        w, v = fn(_on(cuda, arr, dtype))
+        torch.cuda.synchronize()
+        assert sp.launches == before + panels
+        before = sp.launches
+        wc, _ = fn(torch.from_numpy(arr).to(dtype))
+        n = arr.shape[-1]
+        amax = np.abs(arr).max()
+        assert w.device.type == "cuda"
+        assert float((w.cpu() - wc).abs().max()) <= 100 * eps * n * amax
+        assert bool((torch.diff(w, dim=-1) >= 0).all())
+        eye = torch.eye(n, device=cuda, dtype=dtype)
+        assert float((v.mT @ v - eye).abs().max()) <= 100 * eps * n
+        recon = (v * w[..., None, :]) @ v.mT - _on(cuda, arr, dtype)
+        assert float(recon.abs().max()) <= rtol * n * amax
+    d, e = rng.standard_normal((2, 100)), rng.standard_normal((2, 99))
+    w, v = la.tridiag_eigh_dc(_on(cuda, d, dtype), _on(cuda, e, dtype))
+    wc, _ = la.tridiag_eigh_dc(torch.from_numpy(d).to(dtype),
+                               torch.from_numpy(e).to(dtype))
+    assert float((w.cpu() - wc).abs().max()) <= 100 * eps * 100 * 4
+
+
+def test_eigh_auto_below_128_runs_jacobi_and_no_kernel(cuda):
+    a = _on(cuda, _sym(np.random.default_rng(41), (4, 127, 127)),
+            torch.float32)
+    before = sp.launches
+    w, v = la.eigh(a)
+    torch.cuda.synchronize()
+    assert sp.launches == before
+    wj, _ = la.eigh(a, method="jacobi")
+    assert torch.equal(w, wj)
+    eps = torch.finfo(torch.float32).eps
+    eye = torch.eye(127, device=cuda)
+    assert float((v.mT @ v - eye).abs().max()) <= 4 * eps * 127
