@@ -22,12 +22,19 @@ Phases, each announced by a flushed line at its start and its end:
    systems of 128²), the suite's ``lu_decomp``, ``cholesky_decomp``
    and ``qr_decomp(method="auto")`` entries, config 4's ``eigh`` of one
    1024² symmetric matrix, and ``eigh_tridiag_dc`` of the (32, 512, 512)
-   Gram batch that the SVD's spectral preconditioner will hand it, each
-   held to bench.py's gates;
+   Gram batch that the SVD's spectral preconditioner hands it; then the
+   suite's ``svd_decomp`` (the 'gram' path), config 3's ``svd_decomp`` +
+   ``svd_lstsq`` on rank-384 matrices by 'gram' and by one-sided Jacobi,
+   ``lstsq`` of a (1024, 128, 64) batch (the Jacobi kernel's default
+   regime), ``solve`` on config 2's systems, ``rrqr_decomp`` of the 512²
+   batch and config 4's ``eigh(method="via_svd")``, each held to
+   bench.py's gates;
 4. times with CUDA events: each kernel, its plain version, one PyTorch
    library call that computes the same function where there is one, and
    the bound; and the wall time of each bench.py entry above, the eigh
-   paths beside ``torch.linalg.eigh`` on the same input.
+   paths beside ``torch.linalg.eigh`` and the SVD paths beside
+   ``torch.linalg.svd`` on the same input (yardsticks the port never
+   calls).
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -55,10 +62,14 @@ from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
 from nd4js_tpu_torch.la import sytrd as sytrd_mod, tridiag_dc
 from nd4js_tpu_torch.ops import _build, chol_leaf as cl, house_panel as hp, \
-    house_stripe as hs, lu_panel as lp, sytrd_panel as sp
+    house_stripe as hs, jacobi_sweep as js, lu_panel as lp, \
+    rrqr_kernel as rk, sytrd_panel as sp
 
-# the module, which la's function of the same name shadows as an attribute
+# the modules, which la's functions of the same names shadow as attributes
 eigh_mod = importlib.import_module("nd4js_tpu_torch.la.eigh")
+svd_gram_mod = importlib.import_module("nd4js_tpu_torch.la.svd_gram")
+svd_jac_mod = importlib.import_module("nd4js_tpu_torch.la.svd_jac")
+rrqr_mod = importlib.import_module("nd4js_tpu_torch.la.rrqr")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -73,7 +84,7 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # that round differently stay within 1.4x of each other on random systems
 BACKWARD_MULT = 8
 KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv",
-           "sytrd_panel")
+           "sytrd_panel", "jacobi_sweeps", "rrqr_kernel")
 # sytrd_panel against its plain version: SYTRD_C·eps·m·max|C| on the
 # trailing block, W, d and e, SYTRD_C·eps·m on V and taus (scale-free).
 # The two sum in different orders. At the main path's shapes (64 of 512 or
@@ -90,6 +101,18 @@ BACKWARD_C = 2
 # the TPU reference's config 4 eigh residual (BENCH_r05.json), printed
 # beside the port's; the gate is bench.py's
 TPU_EIGH_RESIDUAL = 4.351e-4
+# ... and its 512² svd and config 3 reconstruction residuals
+TPU_SVD_RECON = 6.706e-4
+TPU_CFG3_RECON = 1.946e-5
+# jacobi_sweeps against its plain version: JACOBI_C·eps·n·max|W| on W,
+# JACOBI_C·eps·n on V and off (scale-free). A sweep rotates each column
+# n − 1 times, and the two sum each apq in different orders.
+JACOBI_C = 64
+# rrqr_kernel against its plain version, with equal pivots: RRQR_C·eps·
+# max(M, N)·max|A| on R_packed, RRQR_C·eps·max(M, N) on V and taus
+RRQR_C = 32
+# the most sweeps svd_jac_1sided takes (its max_sweeps)
+MAX_SWEEPS = 24
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -441,12 +464,126 @@ def phase2_sytrd(rng, errs):
                 "columns")
 
 
+def regime_name(small: bool) -> str:
+    return "shared memory" if small else "global memory"
+
+
+def near_converged(rng, shape):
+    """W = U·diag(σ)·(I + (0.1/n)·G) from seeded normals: σ from 10 down to 1
+    geometrically, columns nearly orthogonal, as late in a Jacobi
+    iteration. A sweep there is a contraction, so two roundings of it
+    agree entry by entry. (Early sweeps of a random W are not: their
+    rotation angles amplify rounding by orders of magnitude, so there
+    only W_in·V = W and VᵀV = I are well posed; see phase2_jacobi.)"""
+    nb, m, n = shape
+    u = np.linalg.qr(rng.standard_normal((nb, m, n)))[0]
+    sig = np.geomspace(10.0, 1.0, n)
+    g = rng.standard_normal((nb, n, n))
+    return (u * sig) @ (np.eye(n) + 0.1 / n * g)
+
+
+def phase2_jacobi(rng, errs):
+    """One sweep from V = I, kernel against plain version, at the main
+    path's shapes: (1024, 64, 64) (the small SVD's Rᵀ, a sweep in shared
+    memory) and (8, 512, 512) (config 3's, one launch a round), and
+    (8, 128, 128), which fits shared memory in float32 only. On a
+    near-converged W both must agree entry by entry. On a random W (the
+    path's first sweep) the kernel must be consistent, W_in·V = W and
+    VᵀV = I; how many matrices differ from the plain version there is
+    printed, not gated."""
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((1024, 64, 64), (8, 128, 128), (8, 512, 512)):
+            nb, m, n = shape
+            unit = JACOBI_C * torch.finfo(dtype).eps * n
+            what = (f"jacobi_sweeps {shape} {dtype} "
+                    f"({regime_name(js.small_regime(m, n, dtype))})")
+            v = torch.eye(n, device=DEVICE, dtype=dtype).repeat(nb, 1, 1)
+            w = torch.from_numpy(near_converged(rng, shape)).to(DEVICE, dtype)
+            got = js.jacobi_sweeps(w, v, 1)
+            want = js.jacobi_sweeps_ref(w, v, 1)
+            worst = 0.0
+            for name, g, r, scale in zip(("W", "V", "off"), got, want,
+                                         (maxabs(w), 1.0, 1.0)):
+                err = maxabs(g - r)
+                worst = max(worst, err / (unit * scale))
+                check(tuple(g.shape) == tuple(r.shape)
+                      and err <= unit * scale,
+                      f"{what}, near-converged: max |{name} - plain| = "
+                      f"{err:.3e} <= {unit * scale:.3e}")
+                if dtype == torch.float32 and name == "W":
+                    errs["jacobi_sweeps"] = max(errs["jacobi_sweeps"], err)
+            say(f"{what}: worst error {worst * JACOBI_C:.3f} eps·n "
+                f"(·max|W| on W), the tolerance {JACOBI_C}; off "
+                f"{maxabs(got[2]):.3e}, the largest over the sweep")
+            w = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
+            wk, vk, _ = js.jacobi_sweeps(w, v, 1)
+            wr, _, _ = js.jacobi_sweeps_ref(w, v, 1)
+            wmax = maxabs(w)
+            cons = maxabs(torch.matmul(w.double(), vk.double()) - wk.double())
+            orth = maxabs(torch.matmul(vk.mT, vk) - v)
+            check(cons <= unit * wmax and orth <= unit,
+                  f"{what}, random: max |W_in·V - W| = {cons:.3e} <= "
+                  f"{unit * wmax:.3e}, max |VᵀV - I| = {orth:.3e} <= "
+                  f"{unit:.3e}")
+            apart = int(((wk - wr).abs().amax(dim=(-2, -1))
+                         > unit * wmax).sum())
+            say(f"{what}, random: {apart} of {nb} matrices differ from the "
+                "plain version's sweep by more than the tolerance")
+
+
+def phase2_rrqr(rng, errs):
+    """Kernel against plain version at the main path's shapes, (1024, 128,
+    128) (config 2's solve, in shared memory) and (32, 512, 512) (global
+    memory), and a tall (3, 100, 60): pivots equal (required in float64;
+    in float32 the matrices whose pivots differ are counted, as two
+    roundings of a near-tie of the norms may choose either), R, V and taus
+    on the matrices with equal pivots; and A[:, P] = Q·R through the
+    port's Q build, which holds whatever the pivots."""
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((1024, 128, 128), (32, 512, 512), (3, 100, 60)):
+            nb, m, n = shape
+            a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
+            got = rk.rrqr_kernel(a)
+            want = rk.rrqr_kernel_ref(a)
+            what = (f"rrqr_kernel {shape} {dtype} "
+                    f"({regime_name(rk.small_regime(m, n, dtype))})")
+            # per matrix: a flip at a near-tie of the norms changes the rest
+            same = (got[3] == want[3]).all(dim=-1)
+            ndiff = nb - int(same.sum())
+            if dtype == torch.float64:
+                check(ndiff == 0, f"{what}: pivots equal to the plain "
+                      "version's")
+            else:
+                say(f"{what}: pivots differ from the plain version's in "
+                    f"{ndiff} of {nb} matrices")
+            amax = maxabs(a)
+            unit = RRQR_C * torch.finfo(dtype).eps * max(m, n)
+            if ndiff < nb:
+                for name, g, r, scale in zip(("R_packed", "V", "taus"),
+                                             got[:3], want[:3],
+                                             (amax, 1.0, 1.0)):
+                    err = maxabs(g[same] - r[same])
+                    check(err <= unit * scale, f"{what}: max |{name} - "
+                          f"plain| = {err:.3e} <= {unit * scale:.3e}")
+                    if dtype == torch.float32 and name == "R_packed":
+                        errs["rrqr_kernel"] = max(errs["rrqr_kernel"], err)
+            q, r, p = rrqr_mod._rrqr_assemble(*got, True)
+            ap = torch.gather(a, 2, p.long()[:, None, :].expand(a.shape))
+            recon = maxabs(torch.matmul(q, r) - ap)
+            tol = (1e-5 * amax * n ** 0.5 if dtype == torch.float32
+                   else unit * amax)
+            check(recon <= tol, f"{what}: max |A[:, P] - Q·R| = {recon:.3e} "
+                  f"<= {tol:.3e}")
+
+
 def phase2(rng):
     errs = dict.fromkeys(KERNELS, 0.0)
     phase2_qr(rng, errs)
     phase2_chol(rng, errs)
     phase2_lu(rng, errs)
     phase2_sytrd(rng, errs)
+    phase2_jacobi(rng, errs)
+    phase2_rrqr(rng, errs)
     return errs
 
 
@@ -461,15 +598,17 @@ def square_solve_gate(a, x, y, what, where="bench.py:362"):
 def reset_counts() -> None:
     hp.launches = hs.launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
-    sp.launches = 0
+    sp.launches = js.launches = rk.launches = 0
     qr_mod.auto_branches.update(cholqr2=0, householder=0)
+    svd_gram_mod.branches.update(exact=0, poly=0, finish=0, repair=0)
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
     return {"house_panel": hp.launches, "qr_gesv": hs.launches,
             "chol_leaf": cl.launches, "lu_panel": lp.launches["lu_panel"],
-            "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches}
+            "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches,
+            "jacobi_sweeps": js.launches, "rrqr_kernel": rk.launches}
 
 
 def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
@@ -595,18 +734,21 @@ def phase3(gen):
         "over 1/√eps")
 
     eig = phase3_eigh(totals)
+    svd_in = phase3_svd(totals, a, cfg2, eig[0])
 
     say(f"launches on the main path: {totals}")
     check(all(c > 0 for c in totals.values()),
           "every kernel of the path was launched")
-    return totals, (a, y), (a1, y1), cfg2, spd, eig
+    return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in
 
 
-def eigh_gate(what, a, w, v, panels, totals):
+def eigh_gate(what, a, w, v, panels, totals, more=None):
     """bench.py's config 4 gate max|V·diag(w)·Vᵀ − A| ≤ 1e-4·max|A|·√N
     (bench.py:433-436), w ascending and finite, w against a float64
-    eigvalsh on the host, and one sytrd_panel launch per 64 columns."""
-    check_counts(what, read_counts(), {"sytrd_panel": panels}, totals)
+    eigvalsh on the host, and one sytrd_panel launch per 64 columns (and
+    the launches in ``more``)."""
+    check_counts(what, read_counts(), {"sytrd_panel": panels} | (more or {}),
+                 totals)
     n = a.shape[-1]
     check(tuple(w.shape) == tuple(a.shape[:-1])
           and tuple(v.shape) == tuple(a.shape)
@@ -646,6 +788,189 @@ def phase3_eigh(totals):
     w, v = la.eigh_tridiag_dc(g)
     eigh_gate("eigh_tridiag_dc Gram (32, 512, 512)", g, w, v, 8, totals)
     return sym, g
+
+
+def gram_launches(n: int) -> dict:
+    """What one svd_gram call of a batch of n×n (n = 64·2^k) launched,
+    besides its seed's sytrd_panel: 'exact' iterations take n/64 chol_leaf
+    leaves each, and a repair one Householder QR of n/128 panels. Read from
+    svd_gram's branch counts, reset with the launch counters."""
+    b = svd_gram_mod.branches
+    say(f"svd_gram took {b['exact']} Cholesky and {b['poly']} series "
+        f"iterations, {b['finish']} finishing runs and {b['repair']} U "
+        "repairs")
+    want = {}
+    if b["exact"]:
+        want["chol_leaf"] = b["exact"] * (n // 64)
+    if b["repair"]:
+        want["house_panel"] = b["repair"] * -(-n // 128)
+    return want
+
+
+def svd_gate(what, a, u, sv, v, tpu=None):
+    """bench.py's svd gate max|U·diag(σ)·V − A| ≤ 1e-5·max|A|·√N
+    (bench.py:322-325); σ sorted, non-negative and within 4·eps·N·σ₀ of a
+    float64 SVD on the host (a backward-stable SVD moves σ by at most
+    ‖ΔA‖₂, about eps·N·‖A‖₂); U's and V's orthogonality printed."""
+    n = a.shape[-1]
+    k = sv.shape[-1]
+    check(tuple(u.shape) == tuple(a.shape[:-1]) + (k,)
+          and tuple(v.shape) == tuple(a.shape[:-2]) + (k, n)
+          and bool(torch.isfinite(u).all() and torch.isfinite(sv).all()
+                   and torch.isfinite(v).all())
+          and bool((sv >= 0).all() and (torch.diff(sv, dim=-1) <= 0).all()),
+          f"{what}: U {tuple(u.shape)}, σ {tuple(sv.shape)} descending and "
+          f"non-negative, V {tuple(v.shape)}, finite")
+    tol = 1e-5 * maxabs(a) * n ** 0.5
+    recon = maxabs(torch.matmul(u * sv[..., None, :], v) - a)
+    beside = "" if tpu is None else \
+        f"; the TPU reference's {tpu:.3e} (BENCH_r05.json)"
+    check(recon <= tol, f"{what}: max |U·diag(σ)·V - A| = {recon:.3e} <= "
+          f"{tol:.3e} (bench.py:322){beside}")
+    sv64 = np.linalg.svd(a.double().cpu().numpy(), compute_uv=False)
+    err = float(np.abs(sv.double().cpu().numpy() - sv64).max())
+    stol = 4 * torch.finfo(a.dtype).eps * n * float(sv64.max())
+    check(err <= stol, f"{what}: max |σ - float64 SVD on the host| = "
+          f"{err:.3e} <= {stol:.3e}")
+    eye = torch.eye(k, device=DEVICE, dtype=a.dtype)
+    say(f"{what}: max |UᵀU - I| = {maxabs(torch.matmul(u.mT, u) - eye):.3e}, "
+        f"max |V·Vᵀ - I| = {maxabs(torch.matmul(v, v.mT) - eye):.3e}; σ from "
+        f"{float(sv.min()):.6e} to {float(sv.max()):.6e}")
+    return recon
+
+
+def lstsq_gate(what, a, x, y):
+    """bench.py's config 3 least-squares gate, the normal equations:
+    max|Aᵀ(A·x − y)| ≤ 1e-3·max|A|²·√N (bench.py:418-422)."""
+    n = a.shape[-1]
+    ne = maxabs(torch.matmul(a.mT, torch.matmul(a, x) - y))
+    tol = 1e-3 * maxabs(a) ** 2 * n ** 0.5
+    check(ne <= tol, f"{what}: max |Aᵀ(A·x - y)| = {ne:.3e} <= {tol:.3e} "
+          "(bench.py:418)")
+
+
+def config3_inputs(rng):
+    """bench.py's config 3 (bench.py:398-404): rank 384 = g1·g2/N of seeded
+    normals (8, 512, 384) and (8, 384, 512), and y (8, 512, 2), float32;
+    the product on the card at full precision."""
+    n, b, rank = 512, 8, 384
+    g1 = torch.from_numpy(rng.standard_normal((b, n, rank))).to(DEVICE,
+                                                                 torch.float32)
+    g2 = torch.from_numpy(rng.standard_normal((b, rank, n))).to(DEVICE,
+                                                                 torch.float32)
+    y = torch.from_numpy(rng.standard_normal((b, n, 2))).to(DEVICE,
+                                                             torch.float32)
+    return torch.matmul(g1, g2) / n, y
+
+
+def jacobi_repair(sv, n) -> bool:
+    """Whether svd_jac_1sided's U completion ran: some matrix has its
+    smallest σ ≤ eps·N·its largest."""
+    eps = torch.finfo(sv.dtype).eps
+    return bool((sv.amin(-1) <= eps * n * sv.amax(-1)).any())
+
+
+def phase3_svd(totals, a, cfg2, sym):
+    """The SVD and RRQR paths: the 512² suite's svd (bench.py:319-325),
+    config 3 by 'gram' (bench.py:398-425) and by one-sided Jacobi
+    (BASELINE.json:9), the Jacobi kernel's default regime through lstsq,
+    solve on config 2's systems, rrqr_decomp of the 512² batch, and config
+    4's eigh through the SVD."""
+    rng = np.random.default_rng(SEED + 5)
+    n = a.shape[-1]
+
+    reset_counts()
+    u, sv, v = la.svd_decomp(a)
+    check_counts("svd_decomp (32, 512, 512)", read_counts(),
+                 {"sytrd_panel": 8} | gram_launches(n), totals)
+    svd_gate("svd_decomp (32, 512, 512)", a, u, sv, v, TPU_SVD_RECON)
+
+    a3, y3 = config3_inputs(rng)
+    reset_counts()
+    u, sv, v = la.svd_decomp(a3)
+    x = la.svd_lstsq(u, sv, v, y3)
+    check_counts("config 3 svd_decomp + svd_lstsq (8, 512, 512)",
+                 read_counts(), {"sytrd_panel": 8} | gram_launches(n), totals)
+    svd_gate("config 3 (8, 512, 512), rank 384", a3, u, sv, v,
+             TPU_CFG3_RECON)
+    lstsq_gate("config 3 svd_lstsq", a3, x, y3)
+    say(f"config 3: numerical rank {la.svd_rank(sv).tolist()}")
+
+    reset_counts()
+    u, sv, v = la.svd_decomp(a3, method="jacobi")
+    x = la.svd_lstsq(u, sv, v, y3)
+    counts = read_counts()
+    sweeps = counts["jacobi_sweeps"]
+    say(f"config 3 by one-sided Jacobi took {sweeps} sweeps (at most "
+        f"{MAX_SWEEPS})")
+    check(1 <= sweeps <= MAX_SWEEPS, f"config 3 Jacobi: {sweeps} sweeps")
+    check_counts("config 3 svd_decomp(method='jacobi') + svd_lstsq",
+                 counts, {"house_panel": (n // 128) * (
+                     2 if jacobi_repair(sv, n) else 1),
+                     "jacobi_sweeps": sweeps}, totals)
+    svd_gate("config 3 by one-sided Jacobi", a3, u, sv, v, TPU_CFG3_RECON)
+    lstsq_gate("config 3 by one-sided Jacobi, svd_lstsq", a3, x, y3)
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    small = torch.randn((1024, 128, 64), generator=gen).to(DEVICE)
+    ys = torch.randn((1024, 128, 1), generator=gen).to(DEVICE)
+    reset_counts()
+    xs = la.lstsq(small, ys)
+    counts = read_counts()
+    sweeps = counts["jacobi_sweeps"]
+    say(f"lstsq (1024, 128, 64) took {sweeps} Jacobi sweeps")
+    check(1 <= sweeps <= MAX_SWEEPS, f"lstsq (1024, 128, 64): {sweeps} "
+          "sweeps")
+    u, sv, v = la.svd_decomp(small)
+    check_counts("lstsq (1024, 128, 64)", counts,
+                 {"house_panel": 2 if jacobi_repair(sv, 64) else 1,
+                  "jacobi_sweeps": sweeps}, totals)
+    svd_gate("svd_decomp (1024, 128, 64)", small, u, sv, v)
+    lstsq_gate("lstsq (1024, 128, 64)", small, xs, ys)
+
+    spd2, y2 = cfg2
+    reset_counts()
+    x = la.solve(spd2, y2)
+    check_counts("solve (1024, 128, 128)", read_counts(), {"rrqr_kernel": 1},
+                 totals)
+    square_solve_gate(spd2, x, y2, "config 2 systems by solve (1024, 128, "
+                      "128)", "bench.py:392")
+    x_ref = torch.from_numpy(np.linalg.solve(spd2.double().cpu().numpy(),
+                                             y2.double().cpu().numpy()))
+    solve_check("solve against a float64 solve on the host", spd2, y2, x,
+                x_ref, torch.float32)
+
+    reset_counts()
+    q, r, p = la.rrqr_decomp(a)
+    check_counts("rrqr_decomp (32, 512, 512)", read_counts(),
+                 {"rrqr_kernel": 1}, totals)
+    amax = maxabs(a)
+    tol = 1e-5 * amax * n ** 0.5
+    ap = torch.gather(a, 2, p.long()[:, None, :].expand(a.shape))
+    recon = maxabs(torch.matmul(q, r) - ap)
+    check(recon <= tol, f"rrqr_decomp: max |A[:, P] - Q·R| = {recon:.3e} <= "
+          f"{tol:.3e}")
+    eps = torch.finfo(torch.float32).eps
+    orth = maxabs(torch.matmul(q.mT, q) - torch.eye(n, device=DEVICE))
+    check(orth <= 4 * eps * n, f"rrqr_decomp: max |QᵀQ - I| = {orth:.3e} "
+          f"<= {4 * eps * n:.3e}")
+    # |R_jj| non-increasing, up to the rounding of the downdated squared
+    # norms that chose the pivots (each within N·eps·‖a_c‖²)
+    d2 = torch.diagonal(r, dim1=-2, dim2=-1).double() ** 2
+    slack = 2 * n * eps * (a.double() ** 2).sum(-2).amax(-1, keepdim=True)
+    rise = float((d2[:, 1:] - d2[:, :-1] - slack).max())
+    strict = int((d2[:, 1:] > d2[:, :-1]).sum())
+    check(rise <= 0, f"rrqr_decomp: |R_jj|² non-increasing within "
+          f"2·N·eps·max‖a_c‖² ({strict} strict rises of {d2.numel()})")
+
+    reset_counts()
+    w, vec = la.eigh(sym, method="via_svd")
+    more = gram_launches(sym.shape[-1])
+    recon = eigh_gate("config 4 eigh(method='via_svd') (1024, 1024)", sym, w,
+                      vec, 16, totals, more)
+    say(f"config 4 via_svd residual {recon:.3e}; the TPU reference's "
+        f"eigh {TPU_EIGH_RESIDUAL:.3e} (BENCH_r05.json)")
+    return {"cfg3": (a3, y3), "small": (small, ys)}
 
 
 def config2_inputs(gen):
@@ -708,28 +1033,22 @@ def host_timers(targets):
             setattr(mod, name, fn)
 
 
-def eigh_breakdown(what, fn):
-    """Where one call's time goes: sytrd (and its sytrd_panel launches),
-    the tridiagonal D&C (its Jacobi leaves and its merges), and the rest
-    (the back-transform GEMM), by host clock with a synchronise around
-    each part."""
+def host_breakdown(what, fn, parts, top):
+    """Where one call of ``fn`` spends its time, by host clock with a
+    synchronise around each of ``parts`` ((module, function, label)); the
+    rest is the whole less the parts named in ``top`` (the others nest
+    inside those)."""
     fn()
     torch.cuda.synchronize()
-    with host_timers([(eigh_mod, "sytrd"), (sytrd_mod, "sytrd_panel"),
-                      (eigh_mod, "tridiag_eigh_dc"),
-                      (tridiag_dc, "_base_eigh"),
-                      (tridiag_dc, "_merge")]) as spent:
+    with host_timers([(mod, name) for mod, name, _ in parts]) as spent:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
-    rest = total - spent["sytrd"] - spent["tridiag_eigh_dc"]
-    say(f"{what} breakdown, host ms: whole {total:.3f}; sytrd "
-        f"{spent['sytrd']:.3f}, of which sytrd_panel "
-        f"{spent['sytrd_panel']:.3f}; tridiagonal D&C "
-        f"{spent['tridiag_eigh_dc']:.3f}, of which Jacobi leaves "
-        f"{spent['_base_eigh']:.3f} and merges {spent['_merge']:.3f}; "
-        f"back-transform and the rest {rest:.3f}")
+    rest = total - sum(spent[name] for name in top)
+    say(f"{what} breakdown, host ms: whole {total:.3f}; "
+        + "; ".join(f"{label} {spent[name]:.3f}" for _, name, label in parts)
+        + f"; the rest {rest:.3f}")
 
 
 def wall_ms(fn):
@@ -746,7 +1065,29 @@ def wall_ms(fn):
     return out
 
 
-def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
+def jacobi_cost(w):
+    """(flops, bytes) of one sweep on W (Nb, M, n) with V (Nb, n, n): n − 1
+    rounds of n/2 pairs, each reducing apq (2M) and rotating two columns
+    of W and of V (6M + 6n), plus the norms at the start (2Mn); W and V
+    read once and written once."""
+    nb, m, n = w.shape
+    flops = (n - 1) * (n // 2) * (8 * m + 6 * n) + 2 * m * n
+    return nb * flops, nb * 2 * (m * n + n * n) * w.element_size()
+
+
+def rrqr_cost(a):
+    """(flops, bytes) of the pivoted factorisation of A (Nb, M, N):
+    4MNK − 2K²(M + N) + 4K³/3 for the reflectors and their application
+    (the norms and the downdates are lower order); A read once, R_packed,
+    V, taus and perm written once."""
+    nb, m, n = a.shape
+    k = min(m, n)
+    flops = 4 * m * n * k - 2 * k * k * (m + n) + 4 * k ** 3 / 3
+    nbytes = a.element_size() * (2 * m * n + m * k + k) + 4 * n
+    return nb * flops, nb * nbytes
+
+
+def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in):
     a, _ = batch
     a1, y1 = cfg1
     spd2, y2 = cfg2
@@ -777,6 +1118,14 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
     c4 = ((sym + sym.mT) * 0.5)[None].contiguous()
     cg = ((g + g.mT) * 0.5).contiguous()
     sp_flops, sp_bytes = sytrd_panel_cost(c4, 64)
+    # jacobi_sweeps: the first sweep of the small SVD path, on Rᵀ of its
+    # pre-QR, (1024, 64, 64); config 3's Jacobi at (8, 512, 512) below
+    small, _ = svd_in["small"]
+    wj = qr_mod._qr_house_flat(small, True)[1].mT.contiguous()
+    vj = torch.eye(64, device=DEVICE).repeat(wj.shape[0], 1, 1)
+    js_flops, js_bytes = jacobi_cost(wj)
+    # rrqr_kernel: config 2's systems, as solve gives them
+    rk_flops, rk_bytes = rrqr_cost(spd2)
     rows = []
     for name, src, repl, kern, plain, lib, flops, nbytes, shape in (
             ("house_panel", "nd4js_tpu_torch/csrc/house_panel.cu",
@@ -810,7 +1159,18 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
             ("sytrd_panel", "nd4js_tpu_torch/csrc/sytrd_panel.cu",
              "nd4js_tpu/ops/sytrd_panel.py:138",
              lambda: sp.sytrd_panel(c4, 64), lambda: sp.sytrd_panel_ref(c4, 64),
-             None, sp_flops, sp_bytes, list(c4.shape) + [64])):
+             None, sp_flops, sp_bytes, list(c4.shape) + [64]),
+            # no single PyTorch call computes one Jacobi sweep
+            ("jacobi_sweeps", "nd4js_tpu_torch/csrc/jacobi_sweep.cu",
+             "nd4js_tpu/ops/jacobi_sweep.py:122",
+             lambda: js.jacobi_sweeps(wj, vj, 1),
+             lambda: js.jacobi_sweeps_ref(wj, vj, 1), None, js_flops,
+             js_bytes, list(wj.shape)),
+            # nor a column-pivoted QR (PyTorch has no geqp3)
+            ("rrqr_kernel", "nd4js_tpu_torch/csrc/rrqr.cu",
+             "nd4js_tpu/ops/rrqr_kernel.py:114",
+             lambda: rk.rrqr_kernel(spd2), lambda: rk.rrqr_kernel_ref(spd2),
+             None, rk_flops, rk_bytes, list(spd2.shape))):
         t_bound, by = bound(flops, nbytes)
         row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                "launches": counts[name], "max_abs_err": errs[name],
@@ -823,15 +1183,28 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
             f"{row['plain_ms']:.4f} ms, library {lib_txt}, "
             f"bound {t_bound:.5f} ms ({by})")
         rows.append(row)
-    # sytrd_panel also at the Gram batch's first panel
-    t_bound, by = bound(*sytrd_panel_cost(cg, 64))
-    other = {"shape": list(cg.shape) + [64],
-             "ms": cuda_ms(lambda: sp.sytrd_panel(cg, 64), 10),
-             "plain_ms": cuda_ms(lambda: sp.sytrd_panel_ref(cg, 64), 3),
-             "bound_ms": t_bound, "bound_by": by}
-    rows[-1]["other_shapes"] = [other]
-    say(f"sytrd_panel {other['shape']}: kernel {other['ms']:.4f} ms, plain "
-        f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
+    # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
+    # config 3's Rᵀ (one launch a round), rrqr_kernel at the 512² batch
+    a3, _ = svd_in["cfg3"]
+    wl = qr_mod._qr_house_flat(a3, True)[1].mT.contiguous()
+    vl = torch.eye(512, device=DEVICE).repeat(wl.shape[0], 1, 1)
+    by_name = {row["name"]: row for row in rows}
+    for name, shape, cost, kern, plain, iters in (
+            ("sytrd_panel", list(cg.shape) + [64], sytrd_panel_cost(cg, 64),
+             lambda: sp.sytrd_panel(cg, 64),
+             lambda: sp.sytrd_panel_ref(cg, 64), 10),
+            ("jacobi_sweeps", list(wl.shape), jacobi_cost(wl),
+             lambda: js.jacobi_sweeps(wl, vl, 1),
+             lambda: js.jacobi_sweeps_ref(wl, vl, 1), 3),
+            ("rrqr_kernel", list(a.shape), rrqr_cost(a),
+             lambda: rk.rrqr_kernel(a), lambda: rk.rrqr_kernel_ref(a), 3)):
+        t_bound, by = bound(*cost)
+        other = {"shape": shape, "ms": cuda_ms(kern, iters),
+                 "plain_ms": cuda_ms(plain, 2), "bound_ms": t_bound,
+                 "bound_by": by}
+        by_name[name]["other_shapes"] = [other]
+        say(f"{name} {shape}: kernel {other['ms']:.4f} ms, plain "
+            f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
 
     a, y = batch
 
@@ -852,9 +1225,68 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig):
                 wall_ms(lambda: la.eigh_tridiag_dc(g)),
             "torch.linalg.eigh Gram (32, 512, 512), yardstick":
                 wall_ms(lambda: torch.linalg.eigh(g))}
-    eigh_breakdown("config 4 eigh (1024, 1024)", lambda: la.eigh(sym))
-    eigh_breakdown("eigh_tridiag_dc Gram (32, 512, 512)",
-                   lambda: la.eigh_tridiag_dc(g))
+    small, ys = svd_in["small"]
+    a3, y3 = svd_in["cfg3"]
+
+    def cfg3(method):
+        u, sv, v = la.svd_decomp(a3, method=method)
+        return la.svd_lstsq(u, sv, v, y3)
+
+    wall |= {
+        "svd_decomp (32, 512, 512)": wall_ms(lambda: la.svd_decomp(a)),
+        "torch.linalg.svd (32, 512, 512), yardstick":
+            wall_ms(lambda: torch.linalg.svd(a)),
+        "config 3 svd_decomp + svd_lstsq (8, 512, 512)":
+            wall_ms(lambda: cfg3("auto")),
+        "config 3 by one-sided Jacobi": wall_ms(lambda: cfg3("jacobi")),
+        "torch.linalg.svd (8, 512, 512), yardstick":
+            wall_ms(lambda: torch.linalg.svd(a3)),
+        "lstsq (1024, 128, 64)": wall_ms(lambda: la.lstsq(small, ys)),
+        "torch.linalg.svd (1024, 128, 64), yardstick":
+            wall_ms(lambda: torch.linalg.svd(small)),
+        "solve (1024, 128, 128)": wall_ms(lambda: la.solve(spd2, y2)),
+        "torch.linalg.solve (1024, 128, 128), yardstick":
+            wall_ms(lambda: torch.linalg.solve(spd2, y2)),
+        "rrqr_decomp (32, 512, 512)": wall_ms(lambda: la.rrqr_decomp(a)),
+        "torch.linalg.qr (32, 512, 512), unpivoted yardstick":
+            wall_ms(lambda: torch.linalg.qr(a)),
+        "config 4 eigh(method='via_svd') (1024, 1024)":
+            wall_ms(lambda: la.eigh(sym, method="via_svd")),
+        "torch.linalg.svd (1024, 1024), yardstick":
+            wall_ms(lambda: torch.linalg.svd(sym))}
+    # svd_gram: the spectral seed, the iterations (their Cholesky
+    # inverses), the repair's Householder QR; svd_jac_1sided: the pre-QR
+    # and repair, the sweeps; eigh: sytrd (its panels), the tridiagonal
+    # D&C (its Jacobi leaves, its merges)
+    gram = [(svd_gram_mod, "eigh_tridiag_dc", "eigh_tridiag_dc"),
+            (svd_gram_mod, "_gram_iterations", "iterations"),
+            (svd_gram_mod, "_chol_inv_core", "of which Cholesky inverses"),
+            (svd_gram_mod, "_robust_qr", "Householder QR")]
+    gram_top = ("eigh_tridiag_dc", "_gram_iterations", "_robust_qr")
+    jac = [(svd_jac_mod, "_qr_house_flat",
+            "Householder QR (pre-QR and repair)"),
+           (svd_jac_mod, "jacobi_sweeps", "sweeps")]
+    jac_top = ("_qr_house_flat", "jacobi_sweeps")
+    eig = [(eigh_mod, "sytrd", "sytrd"),
+           (sytrd_mod, "sytrd_panel", "of which sytrd_panel"),
+           (eigh_mod, "tridiag_eigh_dc", "tridiagonal D&C"),
+           (tridiag_dc, "_base_eigh", "of which Jacobi leaves"),
+           (tridiag_dc, "_merge", "merges")]
+    eig_top = ("sytrd", "tridiag_eigh_dc")
+    for what, fn, parts, top in (
+            ("svd_decomp (32, 512, 512)", lambda: la.svd_decomp(a), gram,
+             gram_top),
+            ("config 3 svd_decomp (8, 512, 512)", lambda: la.svd_decomp(a3),
+             gram, gram_top),
+            ("config 3 by one-sided Jacobi",
+             lambda: la.svd_decomp(a3, method="jacobi"), jac, jac_top),
+            ("svd_decomp (1024, 128, 64)", lambda: la.svd_decomp(small), jac,
+             jac_top),
+            ("config 4 eigh (1024, 1024)", lambda: la.eigh(sym), eig,
+             eig_top),
+            ("eigh_tridiag_dc Gram (32, 512, 512)",
+             lambda: la.eigh_tridiag_dc(g), eig, eig_top)):
+        host_breakdown(what, fn, parts, top)
     # sytrd_panel on each of config 4's 16 panel shapes, against the whole
     # sytrd on the device
     spanels = [cuda_ms(lambda p=c4[:, k:, k:].contiguous(),
@@ -898,9 +1330,10 @@ def main():
     with phase("2 kernels against their plain versions"):
         errs = phase2(rng)
     with phase("3 main path"):
-        counts, batch, cfg1, cfg2, spd512, eig = phase3(gen)
+        counts, batch, cfg1, cfg2, spd512, eig, svd_in = phase3(gen)
     with phase("4 times"):
-        rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig)
+        rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig,
+                            svd_in)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():

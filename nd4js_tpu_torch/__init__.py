@@ -14,7 +14,12 @@ Ported so far: batched Householder QR and QR least squares
 and ``qr_gesv``; LU, Cholesky and determinants with ``chol_leaf``,
 ``lu_panel`` and ``lu_gesv``; symmetric eigen (``la.eigh``,
 ``la.eigh_jacobi``, ``la.eigh_tridiag_dc``, ``la.tridiag_eigh_dc``) with
-``sytrd_panel``.
+``sytrd_panel``; the SVD (``la.svd_decomp``, ``la.svd_gram``,
+``la.svd_jac_1sided``, ``la.svd_lstsq``, ``la.svd_solve``, ``la.rank``,
+``la.lstsq``, ``la.eigh_via_svd``) with ``jacobi_sweeps``; and the
+rank-revealing QR and solves (``la.rrqr_decomp``, ``la.rrqr_lstsq``,
+``la.rrqr_solve``, ``la.solve``, ``la.permute_rows`` and kin) with
+``rrqr_kernel``.
 """
 from . import config
 from . import la

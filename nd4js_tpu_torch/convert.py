@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
 The library has no learned weights: its state is the input arrays and a
-Householder factorisation, ``R_packed`` plus the list of ``(k, V, T)``
-panels that ``la.qr._qr_factor_batched`` returns in both packages.
+factorisation: ``R_packed`` plus the list of ``(k, V, T)`` panels that
+``la.qr._qr_factor_batched`` returns in both packages, or the
+``(R_packed, V, taus, perm)`` of the ``rrqr_kernel`` in both.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from . import config
 
-__all__ = ["as_tensor", "from_numpy", "vts_from_numpy"]
+__all__ = ["as_tensor", "from_numpy", "rrqr_from_numpy", "vts_from_numpy"]
 
 
 def as_tensor(a, device=None) -> torch.Tensor:
@@ -39,3 +40,14 @@ def vts_from_numpy(vts, device=None):
     → the port's form, ``[(int k, tensor V, tensor T), ...]``."""
     return [(int(k), from_numpy(V, device), from_numpy(T, device))
             for k, V, T in vts]
+
+
+def rrqr_from_numpy(r_packed, v, taus, perm, device=None):
+    """A column-pivoted factorisation ``(R_packed, V, taus, perm)`` given as
+    numpy arrays (e.g. ``np.asarray`` of the JAX package's ``rrqr_kernel``
+    output) → tensors on ``device``: floats as :func:`from_numpy` gives
+    them, ``perm`` kept an int32 tensor."""
+    perm = torch.from_numpy(np.array(perm, dtype=np.int32)).to(
+        config.default_device if device is None else device)
+    return (from_numpy(r_packed, device), from_numpy(v, device),
+            from_numpy(taus, device), perm)

@@ -1,19 +1,32 @@
 """Dense linear algebra, batched over leading dims."""
 from .cholesky import cholesky_decomp, cholesky_solve
 from .det import det, det_tri, slogdet, slogdet_tri
-from .eigh import eigh, eigh_jacobi, eigh_tridiag_dc
+from .eigh import eigh, eigh_jacobi, eigh_tridiag_dc, eigh_via_svd
 from .lu import lu_decomp, lu_solve, lu_solve_fused
 from .matmul import matmul2
 from .norm import norm_fro
+from .permute import (invert_permutation, permute_cols, permute_rows,
+                      unpermute_cols, unpermute_rows)
 from .qr import (qr_decomp, qr_decomp_full, qr_lstsq, qr_lstsq_fused,
                  qr_solve)
+from .rrqr import (rrqr_decomp, rrqr_decomp_full, rrqr_lstsq, rrqr_rank,
+                   rrqr_solve)
+from .singular_matrix_solve_error import SingularMatrixSolveError
+from .solve import solve
+from .svd import lstsq, rank, svd_decomp, svd_lstsq, svd_rank, svd_solve
+from .svd_gram import svd_gram
+from .svd_jac import svd_jac_1sided
 from .tri import tril, tril_solve, tril_t_solve, triu, triu_solve, triu_t_solve
 from .tridiag_dc import tridiag_eigh_dc
 
-__all__ = ["cholesky_decomp", "cholesky_solve", "det", "det_tri", "eigh",
-           "eigh_jacobi", "eigh_tridiag_dc", "lu_decomp", "lu_solve",
-           "lu_solve_fused", "matmul2", "norm_fro",
-           "qr_decomp", "qr_decomp_full", "qr_lstsq", "qr_lstsq_fused",
-           "qr_solve", "slogdet", "slogdet_tri", "tril", "tril_solve",
-           "tril_t_solve", "tridiag_eigh_dc", "triu", "triu_solve",
-           "triu_t_solve"]
+__all__ = ["SingularMatrixSolveError", "cholesky_decomp", "cholesky_solve",
+           "det", "det_tri", "eigh", "eigh_jacobi", "eigh_tridiag_dc",
+           "eigh_via_svd", "invert_permutation", "lstsq", "lu_decomp",
+           "lu_solve", "lu_solve_fused", "matmul2", "norm_fro",
+           "permute_cols", "permute_rows", "qr_decomp", "qr_decomp_full",
+           "qr_lstsq", "qr_lstsq_fused", "qr_solve", "rank", "rrqr_decomp",
+           "rrqr_decomp_full", "rrqr_lstsq", "rrqr_rank", "rrqr_solve",
+           "slogdet", "slogdet_tri", "solve", "svd_decomp", "svd_gram",
+           "svd_jac_1sided", "svd_lstsq", "svd_rank", "svd_solve", "tril",
+           "tril_solve", "tril_t_solve", "tridiag_eigh_dc", "triu",
+           "triu_solve", "triu_t_solve", "unpermute_cols", "unpermute_rows"]

@@ -8,9 +8,9 @@ counterpart of ``nd4js_tpu/la/eigh.py``:
 * ``eigh_tridiag_dc`` — ``la.sytrd`` (the ``sytrd_panel`` kernel) then
   the tridiagonal divide-and-conquer of ``la.tridiag_dc`` and one
   back-transform GEMM.
+* ``eigh_via_svd`` — the SVD of A + ‖A‖_F·I, whose singular triplets are
+  its eigenpairs, shifted back.
 * ``eigh`` routes n ≥ 128 to ``dc`` and smaller inputs to Jacobi.
-
-The JAX package's ``eigh_via_svd`` needs the SVD, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from ..core.mm import mm, mt
 from .sytrd import sytrd
 from .tridiag_dc import tridiag_eigh_dc
 
-__all__ = ["eigh", "eigh_jacobi", "eigh_tridiag_dc"]
+__all__ = ["eigh", "eigh_jacobi", "eigh_tridiag_dc", "eigh_via_svd"]
 
 
 def _shuffle_cols(xt, xb):
@@ -126,6 +126,29 @@ def eigh_jacobi(a, max_sweeps: int = 30, device=None):
     return _eigh_jacobi(a.to(default_float_for(a.dtype)), max_sweeps)
 
 
+def eigh_via_svd(a, device=None):
+    """Symmetric eigendecomposition through the SVD
+    (``nd4js_tpu/la/eigh.py:129-152``): B = A + c·I with c = ‖A‖_F ≥ ρ(A)
+    is positive definite, so its singular triplets are its eigenpairs (no
+    ±λ ambiguity); λ = σ − c, sorted ascending (stably). Absolute accuracy
+    eps·c on small eigenvalues. Batched over leading dims. An array-like
+    ``a`` goes to ``device`` (default ``config.default_device``)."""
+    from .svd import svd_decomp
+    a = as_tensor(a, device)
+    a = a.to(default_float_for(a.dtype))
+    a = (a + mt(a)) * 0.5
+    n = a.shape[-1]
+    c = torch.sqrt((a * a).sum(dim=(-2, -1), keepdim=True)) \
+        + torch.finfo(a.dtype).tiny
+    b = a + c * torch.eye(n, dtype=a.dtype, device=a.device)
+    u, sv, _ = svd_decomp(b)
+    w = sv - c[..., 0]
+    order = torch.argsort(w, dim=-1, stable=True)
+    w = torch.gather(w, -1, order)
+    vec = torch.gather(u, -1, order[..., None, :].expand(u.shape))
+    return w, vec
+
+
 def eigh_tridiag_dc(a, device=None):
     """Symmetric eigendecomposition by blocked tridiagonalisation
     (``la.sytrd``, one ``sytrd_panel`` launch per 64 columns) and
@@ -145,17 +168,15 @@ def eigh(a, max_sweeps: int = 30, method: str = "auto", device=None):
     """Symmetric eigendecomposition, A = V·diag(w)·Vᵀ, w ascending.
 
     method: 'auto' (n ≥ 128 goes to 'dc', smaller inputs to 'jacobi'),
-    'jacobi' (highest relative accuracy) or 'dc' (tridiagonal
-    divide-and-conquer). 'via_svd' needs the SVD and is not ported yet.
-    An array-like ``a`` goes to ``device`` (default
+    'jacobi' (highest relative accuracy), 'dc' (tridiagonal
+    divide-and-conquer) or 'via_svd' (the SVD of a shifted A). An
+    array-like ``a`` goes to ``device`` (default
     ``config.default_device``)."""
     if method == "auto":
         shape = np.shape(a)
         method = "dc" if len(shape) >= 2 and shape[-1] >= 128 else "jacobi"
     if method == "via_svd":
-        raise NotImplementedError(
-            "eigh method 'via_svd' needs the SVD, which is not ported yet "
-            "(ROADMAP.md, modules to port: the SVD slice)")
+        return eigh_via_svd(a, device=device)
     if method == "dc":
         return eigh_tridiag_dc(a, device=device)
     if method == "jacobi":

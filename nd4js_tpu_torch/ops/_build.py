@@ -22,12 +22,17 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "check_operand", "launch", "library"]
+__all__ = ["NVCC_FLAGS", "SMEM_MAX", "build", "check_operand", "launch",
+           "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "nd4js_tpu_torch"
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
+# shared memory one block may use on Hopper (227 KB), which decides the
+# regime of the kernels that keep a whole matrix there when it fits
+SMEM_MAX = 232448
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,6 +52,10 @@ _SIGNATURES = {
     "nd4js_lu_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I, _I, _I, _P]),
     "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I, _I, _I, _P]),
+    "nd4js_jacobi_sweeps_f32": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "nd4js_rrqr_f64": (_I, [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 _built = None

@@ -206,9 +206,13 @@ def test_integer_input_promotes_to_float64(fn):
 
 
 def test_eigh_methods_not_ported_or_unknown_raise():
+    """Every method of the JAX package's eigh is ported now ('via_svd'
+    with the SVD slice: the identity's eigenpairs within 8·eps·n·‖A‖_F,
+    the bound of its shift); an unknown method raises."""
     a = np.eye(3)
-    with pytest.raises(NotImplementedError, match="SVD"):
-        la.eigh(a, method="via_svd", device=CPU)
+    w, v = la.eigh(a, method="via_svd", device=CPU)
+    assert np.abs(w.numpy() - 1.0).max() <= 8 * EPS64 * 3 * np.sqrt(3)
+    assert np.abs((v.mT @ v).numpy() - a).max() <= 4 * EPS64 * 3
     with pytest.raises(ValueError, match="unknown"):
         la.eigh(a, method="qr", device=CPU)
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels and its QR, Cholesky, LU and symmetric eigen
-slices on the card.
+"""The port's CUDA kernels and its QR, Cholesky, LU, symmetric eigen, SVD
+and rank-revealing QR slices on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine without
 them, skipping the JAX-based tests/conftest.py:
@@ -16,8 +16,16 @@ same TOL·max|A| and TOL·max|L⁻¹|; ``lu_panel``'s factored panel within
 TOL·max|A| and its rank exactly equal (the kernel and the plain version
 round each product and difference alike); ``sytrd_panel`` within
 SYTRD_C·eps·m·max|C| (reason below), its trailing block exactly
-symmetric, and backward stable (``panel_backward_error``).
+symmetric, and backward stable (``panel_backward_error``);
+``jacobi_sweeps``' W within 64·eps·n·max|W| and V and off within 64·eps·n
+on a near-converged W (the two sum in different orders over n − 1 rounds),
+and consistent on a random one, in both of its regimes (a sweep in shared
+memory, or one launch a round); ``rrqr_kernel``'s pivots exactly equal (in
+float32, on the matrices where no near-tie flipped one) and R, V, taus
+within 32·eps·max(M, N)·max|A|, in both of its regimes.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,8 +35,12 @@ from nd4js_tpu_torch.la import qr
 from nd4js_tpu_torch.ops import chol_leaf as cl
 from nd4js_tpu_torch.ops import house_panel as hp
 from nd4js_tpu_torch.ops import house_stripe as hs
+from nd4js_tpu_torch.ops import jacobi_sweep as js
 from nd4js_tpu_torch.ops import lu_panel as lp
+from nd4js_tpu_torch.ops import rrqr_kernel as rk
 from nd4js_tpu_torch.ops import sytrd_panel as sp
+
+rrqr_mod = importlib.import_module("nd4js_tpu_torch.la.rrqr")
 
 pytestmark = pytest.mark.gpu
 
@@ -433,3 +445,176 @@ def test_eigh_auto_below_128_runs_jacobi_and_no_kernel(cuda):
     eps = torch.finfo(torch.float32).eps
     eye = torch.eye(127, device=cuda)
     assert float((v.mT @ v - eye).abs().max()) <= 4 * eps * 127
+
+
+# (Nb, M, n) of W for jacobi_sweeps: 16² and 96×64 run a sweep in shared
+# memory in both dtypes, 128² in float32 only (256 KB in float64 does not
+# fit 227 KB), 256² in global memory in both
+JACOBI_SHAPES = [(5, 16, 16), (3, 96, 64), (2, 128, 128), (2, 256, 256)]
+
+
+def test_jacobi_and_rrqr_shapes_cover_both_regimes_in_both_dtypes():
+    for small_regime, shapes in (
+            (js.small_regime, [s[1:] for s in JACOBI_SHAPES]),
+            (rk.small_regime, [s[1:] for s in RRQR_SHAPES])):
+        for dtype in DTYPES:
+            assert {small_regime(m, n, dtype) for m, n in shapes} == \
+                {True, False}
+
+
+def _near_converged(rng, shape):
+    """W = U·diag(σ)·(I + (0.1/n)·G), σ from 10 to 1: nearly orthogonal
+    columns, as late in a Jacobi iteration, where a sweep is a contraction
+    and two roundings of it agree entry by entry. (A sweep of a random W
+    amplifies rounding by orders of magnitude: there only W_in·V = W and
+    VᵀV = I are well posed.)"""
+    nb, m, n = shape
+    u = np.linalg.qr(rng.standard_normal((nb, m, n)))[0]
+    return (u * np.geomspace(10.0, 1.0, n)) @ \
+        (np.eye(n) + 0.1 / n * rng.standard_normal((nb, n, n)))
+
+
+@pytest.mark.parametrize("shape", JACOBI_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jacobi_sweeps_kernel_matches_plain_version(cuda, shape, dtype):
+    """One sweep, and two in one call, from a near-converged W with a zero
+    column (its pairs have apq = 0 and are left alone) and V = I, against
+    the plain version; a sweep of a random W consistent (W_in·V = W, V
+    orthogonal); the inputs are not written to."""
+    rng = np.random.default_rng(60 + shape[-1])
+    nb, m, n = shape
+    w0 = _near_converged(rng, shape)
+    w0[0, :, 1] = 0.0
+    w = _on(cuda, w0, dtype)
+    v = torch.eye(n, device=cuda, dtype=dtype).repeat(nb, 1, 1)
+    w_in, v_in = w.clone(), v.clone()
+    unit = 64 * torch.finfo(dtype).eps * n
+    wmax = float(w.abs().max())
+    for sweeps in (1, 2):
+        before = js.launches
+        got = js.jacobi_sweeps(w, v, sweeps)
+        torch.cuda.synchronize()
+        assert js.launches == before + 1
+        want = js.jacobi_sweeps_ref(w, v, sweeps)
+        for g, r, scale in zip(got, want, (wmax, 1.0, 1.0)):
+            assert g.device.type == "cuda" and g.shape == r.shape
+            assert float((g - r).abs().max()) <= sweeps * unit * scale
+    assert torch.equal(w, w_in) and torch.equal(v, v_in)
+    # a later call reads the transposed views the kernel returned
+    again = js.jacobi_sweeps(*got[:2], 1)
+    want = js.jacobi_sweeps_ref(*got[:2], 1)
+    assert float((again[0] - want[0]).abs().max()) <= unit * wmax
+    wr = _on(cuda, rng.standard_normal(shape), dtype)
+    wk, vk, _ = js.jacobi_sweeps(wr, v, 1)
+    cons = (wr.double() @ vk.double() - wk.double()).abs().max()
+    assert float(cons) <= unit * float(wr.abs().max())
+    assert float((vk.mT @ vk - v).abs().max()) <= unit
+
+
+# (Nb, M, N) for rrqr_kernel: the first three in shared memory in both
+# dtypes; (2, 300, 260) in global memory in both
+RRQR_SHAPES = [(3, 24, 16), (2, 16, 24), (4, 128, 128), (2, 300, 260)]
+
+
+@pytest.mark.parametrize("shape", RRQR_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rrqr_kernel_matches_plain_version(cuda, shape, dtype):
+    """The kernel against its plain version, from an A with a zero column
+    (τ = 0 when it is reached) and two equal columns (the lower index
+    first, and a numerically zero column left once one is taken, where
+    K = N); A[:, P] = Q·R by the port's Q build."""
+    rng = np.random.default_rng(61 + shape[-1])
+    a0 = rng.standard_normal(shape)
+    a0[0, :, 2] = 0.0
+    a0[-1, :, 5] = a0[-1, :, 3]
+    a = _on(cuda, a0, dtype)
+    before = rk.launches
+    got = rk.rrqr_kernel(a)
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    want = rk.rrqr_kernel_ref(a)
+    assert got[3].dtype == torch.int32
+    # in float32 a near-tie of two norms may pivot either way (and then
+    # the rest of that matrix differs); in float64 the pivots must agree
+    same = (got[3] == want[3]).all(dim=-1)
+    if dtype == torch.float64:
+        assert bool(same.all())
+    assert bool(same.any())
+    eps = torch.finfo(dtype).eps
+    unit = 32 * eps * max(shape[1:])
+    amax = float(a.abs().max())
+    # the reflector of a numerically zero trailing column (the duplicate's,
+    # once its twin is taken) is rounding noise over rounding noise, in
+    # either version: V and taus are compared on the live steps, those
+    # with |R_jj| above rrqr_rank's eps·max(M, N)·|R_00|
+    d = torch.diagonal(want[0], dim1=-2, dim2=-1).abs()
+    live = (d > eps * max(shape[1:]) * d[:, :1])[same]
+    assert float((got[0][same] - want[0][same]).abs().max()) <= unit * amax
+    vg, vw = got[1][same], want[1][same]
+    assert float(((vg - vw).abs() * live[:, None, :]).max()) <= unit
+    tg, tw = got[2][same], want[2][same]
+    assert float(((tg - tw).abs() * live).max()) <= unit
+    q, r, p = rrqr_mod._rrqr_assemble(*got, True)
+    ap = torch.gather(a, 2, p.long()[:, None, :].expand(a.shape))
+    assert float((q @ r - ap).abs().max()) <= unit * amax
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_svd_rrqr_slice_on_the_card_matches_the_cpu(cuda, dtype):
+    """svd_decomp (jacobi below 128, gram with both preconditioners),
+    lstsq, eigh via the SVD, rrqr_decomp and solve on the card against the
+    same calls on the CPU: σ, w, R and x directly (within 100·TOL), U, V,
+    Q by their contracts; each kernel launched as the path says."""
+    rng = np.random.default_rng(62)
+    eps = torch.finfo(dtype).eps
+    tol = 100 * TOL[dtype]
+    a = rng.standard_normal((3, 40, 30))
+    y = rng.standard_normal((3, 40, 2))
+    before = js.launches
+    u, sv, v = la.svd_decomp(_on(cuda, a, dtype))
+    torch.cuda.synchronize()
+    assert js.launches > before
+    _, svc, _ = la.svd_decomp(torch.from_numpy(a).to(dtype))
+    assert float((sv.cpu() - svc).abs().max()) <= tol * float(svc.max())
+    rec = (u * sv[..., None, :]) @ v - _on(cuda, a, dtype)
+    assert float(rec.abs().max()) <= 32 * eps * 40 * np.abs(a).max()
+    eye = torch.eye(30, device=cuda, dtype=dtype)
+    assert float((u.mT @ u - eye).abs().max()) <= 4 * eps * 40
+    assert float((v @ v.mT - eye).abs().max()) <= 4 * eps * 40
+    x = la.lstsq(_on(cuda, a, dtype), _on(cuda, y, dtype))
+    xc = la.lstsq(torch.from_numpy(a).to(dtype), torch.from_numpy(y).to(dtype))
+    assert float((x.cpu() - xc).abs().max()) <= \
+        tol * float(xc.abs().max()) * np.linalg.cond(a).max()
+    sq = rng.standard_normal((2, 130, 130))
+    before = sp.launches
+    for precond in ("qlp", "spectral"):
+        _, sv, _ = la.svd_gram(_on(cuda, sq, dtype), precond=precond)
+        _, svc, _ = la.svd_gram(torch.from_numpy(sq).to(dtype),
+                                precond=precond)
+        assert float((sv.cpu() - svc).abs().max()) <= tol * float(svc.max())
+    torch.cuda.synchronize()
+    assert sp.launches == before + 3       # the spectral seed: 3 panels
+    sym = sq + np.swapaxes(sq, -1, -2)
+    w, _ = la.eigh(_on(cuda, sym, dtype), method="via_svd")
+    wc, _ = la.eigh(torch.from_numpy(sym).to(dtype), method="via_svd")
+    assert float((w.cpu() - wc).abs().max()) <= \
+        tol * float(np.sqrt((sym * sym).sum(axis=(-2, -1))).max())
+    before = rk.launches
+    q, r, p = la.rrqr_decomp(_on(cuda, sq, dtype))
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    qc, rc, pc = la.rrqr_decomp(torch.from_numpy(sq).to(dtype))
+    if dtype == torch.float64 or torch.equal(p.cpu(), pc):
+        assert torch.equal(p.cpu(), pc)
+        assert float((r.cpu() - rc).abs().max()) <= tol * np.abs(sq).max()
+    ap = torch.gather(_on(cuda, sq, dtype), 2,
+                      p.long()[:, None, :].expand(2, 130, 130))
+    assert float((q @ r - ap).abs().max()) <= 32 * eps * 130 * np.abs(sq).max()
+    eye = torch.eye(130, device=cuda, dtype=dtype)
+    assert float((q.mT @ q - eye).abs().max()) <= 4 * eps * 130
+    ys = rng.standard_normal((2, 130, 1))
+    xs = la.solve(_on(cuda, sq, dtype), _on(cuda, ys, dtype))
+    xsc = la.solve(torch.from_numpy(sq).to(dtype),
+                   torch.from_numpy(ys).to(dtype))
+    assert_backward_stable(torch.from_numpy(sq).to(dtype),
+                           torch.from_numpy(ys).to(dtype), xs, xsc, dtype)

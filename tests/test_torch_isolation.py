@@ -51,6 +51,16 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert expected <= set(got["modules"])
 
 
+def test_the_svd_and_rrqr_modules_are_among_those_checked():
+    """The modules of the SVD and rank-revealing QR slice are found by the
+    walk above, so they too import without JAX."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"la/svd", "la/svd_jac", "la/svd_gram", "la/rrqr", "la/solve",
+            "la/permute", "la/singular_matrix_solve_error",
+            "ops/jacobi_sweep", "ops/rrqr_kernel"} <= found
+
+
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         assert not _top_level_imports(path) & set(FORBIDDEN), path
