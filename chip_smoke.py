@@ -27,14 +27,17 @@ Phases, each announced by a flushed line at its start and its end:
    ``svd_lstsq`` on rank-384 matrices by 'gram' and by one-sided Jacobi,
    ``lstsq`` of a (1024, 128, 64) batch (the Jacobi kernel's default
    regime), ``solve`` on config 2's systems, ``rrqr_decomp`` of the 512²
-   batch and config 4's ``eigh(method="via_svd")``, each held to
-   bench.py's gates;
+   batch and config 4's ``eigh(method="via_svd")``; then config 4's
+   general ``eigen`` of one 1024² matrix, ``schur_decomp`` of its balanced
+   form and ``eigen`` of a (256, 64, 64) batch, each held to bench.py's
+   gates;
 4. times with CUDA events: each kernel, its plain version, one PyTorch
    library call that computes the same function where there is one, and
    the bound; and the wall time of each bench.py entry above, the eigh
-   paths beside ``torch.linalg.eigh`` and the SVD paths beside
-   ``torch.linalg.svd`` on the same input (yardsticks the port never
-   calls).
+   paths beside ``torch.linalg.eigh``, the SVD paths beside
+   ``torch.linalg.svd`` and the eigen paths beside ``torch.linalg.eig``
+   on the same input (yardsticks the port never calls), with a host
+   breakdown of config 4's eigen.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -61,15 +64,18 @@ from nd4js_tpu_torch import la
 from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
 from nd4js_tpu_torch.la import sytrd as sytrd_mod, tridiag_dc
-from nd4js_tpu_torch.ops import _build, chol_leaf as cl, house_panel as hp, \
-    house_stripe as hs, jacobi_sweep as js, lu_panel as lp, \
-    rrqr_kernel as rk, sytrd_panel as sp
+from nd4js_tpu_torch.ops import _build, bulge_chase as bc, chol_leaf as cl, \
+    house_panel as hp, house_stripe as hs, jacobi_sweep as js, \
+    lu_panel as lp, rrqr_kernel as rk, schur_small as ss, sytrd_panel as sp, \
+    trevc_solve as tv
 
 # the modules, which la's functions of the same names shadow as attributes
 eigh_mod = importlib.import_module("nd4js_tpu_torch.la.eigh")
 svd_gram_mod = importlib.import_module("nd4js_tpu_torch.la.svd_gram")
 svd_jac_mod = importlib.import_module("nd4js_tpu_torch.la.svd_jac")
 rrqr_mod = importlib.import_module("nd4js_tpu_torch.la.rrqr")
+schur_mod = importlib.import_module("nd4js_tpu_torch.la.schur")
+eigen_mod = importlib.import_module("nd4js_tpu_torch.la.eigen")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -84,7 +90,8 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # that round differently stay within 1.4x of each other on random systems
 BACKWARD_MULT = 8
 KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv",
-           "sytrd_panel", "jacobi_sweeps", "rrqr_kernel")
+           "sytrd_panel", "jacobi_sweeps", "rrqr_kernel", "schur_small",
+           "bulge_chase_steps", "trevc_solve")
 # sytrd_panel against its plain version: SYTRD_C·eps·m·max|C| on the
 # trailing block, W, d and e, SYTRD_C·eps·m on V and taus (scale-free).
 # The two sum in different orders. At the main path's shapes (64 of 512 or
@@ -113,6 +120,18 @@ JACOBI_C = 64
 RRQR_C = 32
 # the most sweeps svd_jac_1sided takes (its max_sweeps)
 MAX_SWEEPS = 24
+# the TPU reference's config 4 eigen residual (BENCH_r05.json)
+TPU_EIGEN_RESIDUAL = 5.412e-5
+# bulge_chase_steps against its plain version: beside TOL, CHASE_SENS times
+# the plain version's own change under an eps perturbation of its input (a
+# train of 16 bulges over 80 positions amplifies rounding by up to 1e10)
+CHASE_SENS = 100
+# schur_small's contract: QᵀQ = I, Q·T·Qᵀ = A and the junk below the
+# subdiagonal within SCHUR_C·eps·W (·max|A|), as tests/test_schur_small.py
+SCHUR_C = 64
+# matrices of a schur_small batch that its plain version also runs (on the
+# host: one host read a chase step makes it slow on the card)
+SCHUR_SAMPLE = 8
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -584,6 +603,7 @@ def phase2(rng):
     phase2_sytrd(rng, errs)
     phase2_jacobi(rng, errs)
     phase2_rrqr(rng, errs)
+    phase2_eigen(rng, errs)
     return errs
 
 
@@ -599,8 +619,10 @@ def reset_counts() -> None:
     hp.launches = hs.launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
     sp.launches = js.launches = rk.launches = 0
+    ss.launches = bc.launches = tv.launches = 0
     qr_mod.auto_branches.update(cholqr2=0, householder=0)
     svd_gram_mod.branches.update(exact=0, poly=0, finish=0, repair=0)
+    schur_mod.branches.update(dict.fromkeys(schur_mod.branches, 0))
 
 
 def read_counts() -> dict:
@@ -608,7 +630,9 @@ def read_counts() -> dict:
     return {"house_panel": hp.launches, "qr_gesv": hs.launches,
             "chol_leaf": cl.launches, "lu_panel": lp.launches["lu_panel"],
             "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches,
-            "jacobi_sweeps": js.launches, "rrqr_kernel": rk.launches}
+            "jacobi_sweeps": js.launches, "rrqr_kernel": rk.launches,
+            "schur_small": ss.launches, "bulge_chase_steps": bc.launches,
+            "trevc_solve": tv.launches}
 
 
 def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
@@ -735,11 +759,12 @@ def phase3(gen):
 
     eig = phase3_eigh(totals)
     svd_in = phase3_svd(totals, a, cfg2, eig[0])
+    geig = phase3_eigen(totals)
 
     say(f"launches on the main path: {totals}")
     check(all(c > 0 for c in totals.values()),
           "every kernel of the path was launched")
-    return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in
+    return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in, geig
 
 
 def eigh_gate(what, a, w, v, panels, totals, more=None):
@@ -973,6 +998,295 @@ def phase3_svd(totals, a, cfg2, sym):
     return {"cfg3": (a3, y3), "small": (small, ys)}
 
 
+# ---------------------------------------------------------------- eigen
+
+
+def hessenberg_blocks(rng, shape):
+    """Upper Hessenberg blocks of seeded normals (the kernels' input)."""
+    return np.triu(rng.standard_normal(shape), -1)
+
+
+def chase_sensitivity(b, p, sh, k0, lo, hi, sl, seed, v_ref, p_ref):
+    """The plain version's own change of V_acc and the carries when b is
+    perturbed by eps of its type, the larger of two draws: a train of
+    bulges amplifies rounding, as each reflector is built from entries its
+    predecessors wrote (tests/test_torch_schur_kernels.py)."""
+    eps = torch.finfo(b.dtype).eps
+    gen = torch.Generator(device=b.device).manual_seed(SEED)
+    sv = sp_ = 0.0
+    for _ in range(2):
+        noise = torch.randn(b.shape, generator=gen, device=b.device,
+                            dtype=b.dtype)
+        v, pp = bc.bulge_chase_steps_ref(b + eps * b * noise, p, sh, k0, lo,
+                                         hi, sl, seed)
+        sv, sp_ = max(sv, maxabs(v - v_ref)), max(sp_, maxabs(pp - p_ref))
+    return sv, sp_
+
+
+def phase2_chase(rng, errs, dtype):
+    """bulge_chase_steps at the main path's window W = 128: the multishift
+    slide NB = 16 seeded (k0 = lo) and carried (mid-sweep), and the classic
+    NB = 1. V_acc and the carries within TOL (and TOL·max|P|) plus
+    CHASE_SENS times the plain version's sensitivity; V_acc orthogonal."""
+    W = 128
+    eps = torch.finfo(dtype).eps
+    for nb, k0, seed in ((16, 0, True), (16, 80, False), (1, 0, True)):
+        sl, lo, hi = W - 3 * nb, 0, W - 2
+        b = torch.from_numpy(hessenberg_blocks(rng, (W, W))).to(DEVICE, dtype)
+        sh = torch.from_numpy(rng.standard_normal((nb, 2))).to(DEVICE, dtype)
+        p = torch.from_numpy(np.zeros((nb, 3)) if seed else
+                             rng.standard_normal((nb, 3))).to(DEVICE, dtype)
+        v, pp = bc.bulge_chase_steps(b, p, sh, k0, lo, hi, sl, seed)
+        vr, pr = bc.bulge_chase_steps_ref(b, p, sh, k0, lo, hi, sl, seed)
+        sv, sp_ = chase_sensitivity(b, p, sh, k0, lo, hi, sl, seed, vr, pr)
+        ev, ep = maxabs(v - vr), maxabs(pp - pr)
+        tv_ = TOL[dtype] + CHASE_SENS * sv
+        tp_ = TOL[dtype] * max(1.0, maxabs(pr)) + CHASE_SENS * sp_
+        orth = maxabs(torch.matmul(v.mT, v) - torch.eye(W, device=DEVICE,
+                                                         dtype=dtype))
+        check(ev <= tv_ and ep <= tp_ and orth <= SCHUR_C * eps * W,
+              f"bulge_chase_steps W={W} NB={nb} k0={k0} {dtype}: max |V_acc "
+              f"- plain| = {ev:.3e} <= {tv_:.3e}, max |P - plain| = {ep:.3e} "
+              f"<= {tp_:.3e} (the plain version's own change under an eps "
+              f"perturbation: {sv:.3e}, {sp_:.3e}); max |VᵀV - I| = "
+              f"{orth:.3e}")
+        if dtype == torch.float32:
+            errs["bulge_chase_steps"] = max(errs["bulge_chase_steps"], ev)
+
+
+def schur_contract(what, a, t, q, lk, dtype):
+    """Per matrix, in float64: QᵀQ = I, Q·T·Qᵀ = A and the junk below the
+    subdiagonal within SCHUR_C·eps·W (·max|A|), every locked flag on a 2×2
+    block with complex eigenvalues."""
+    a, t, q = a.double(), t.double(), q.double()
+    nb, W, _ = a.shape
+    unit = SCHUR_C * torch.finfo(dtype).eps * W
+    amax = a.abs().amax((-2, -1)).clamp(min=1.0)
+    eye = torch.eye(W, device=a.device, dtype=torch.float64)
+    orth = (torch.matmul(q.mT, q) - eye).abs().amax((-2, -1))
+    sim = (torch.matmul(torch.matmul(q, t), q.mT) - a).abs().amax((-2, -1))
+    junk = torch.tril(t, -2).abs().amax((-2, -1))
+    check(bool((orth <= unit).all() and (sim <= unit * amax).all()
+               and (junk <= unit * amax).all()),
+          f"{what}: max |QᵀQ - I| = {float(orth.max()):.3e}, max |Q·T·Qᵀ - A|"
+          f"/max|A| = {float((sim / amax).max()):.3e}, junk below the "
+          f"subdiagonal/max|A| = {float((junk / amax).max()):.3e}, each <= "
+          f"{unit:.3e}")
+    m, j = torch.nonzero(lk[:, :W - 1] > 0.5, as_tuple=True)
+    aa, bb = t[m, j, j], t[m, j, j + 1]
+    cc, dd = t[m, j + 1, j], t[m, j + 1, j + 1]
+    disc = (aa - dd) ** 2 + 4 * bb * cc
+    check(bool((disc < 0).all()), f"{what}: all {len(m)} locked flags sit on "
+          "2×2 blocks with complex eigenvalues")
+
+
+def eigvals_host(t):
+    """Eigenvalues of each quasi-triangular T (cleaned below the
+    subdiagonal), in float64 on the host."""
+    return np.linalg.eigvals(np.triu(t.double().cpu().numpy(), -1))
+
+
+def matched_gap(lam, ref):
+    """Largest distance in a greedy nearest matching of two sets."""
+    ref = list(ref)
+    worst = 0.0
+    for w in lam:
+        d = np.abs(np.asarray(ref) - w)
+        i = int(np.argmin(d))
+        worst = max(worst, float(d[i]))
+        ref.pop(i)
+    return worst
+
+
+def phase2_schur_small(rng, errs, dtype):
+    """schur_small at the AED window (1, 48, 48), small_win's (1, 128, 128)
+    and the batched whole-matrix route (256, 64, 64). Rounding may flip a
+    deflation decision, so the kernel is held to its contract and its
+    eigenvalues to the plain version's (run on a host copy of the same
+    input, the first SCHUR_SAMPLE matrices of the batch), nearest to
+    nearest within 1e3·eps·W·max|A| plus 4 times the plain version's own
+    distance to float64 eigenvalues of A; where both took the same number
+    of rounds, their largest entrywise difference is printed."""
+    eps = torch.finfo(dtype).eps
+    for shape in ((1, 48, 48), (1, 128, 128), (256, 64, 64)):
+        W = shape[-1]
+        what = f"schur_small {shape} {dtype}"
+        a = torch.from_numpy(hessenberg_blocks(rng, shape)).to(DEVICE, dtype)
+        t, q, lk, its = ss.schur_small(a)
+        schur_contract(what, a, t, q, lk, dtype)
+        m = min(shape[0], SCHUR_SAMPLE)
+        tr, qr, lkr, itr = ss.schur_small_ref(a[:m].cpu())
+        worst = 0.0
+        for i in range(m):
+            ai = a[i].double().cpu().numpy()
+            truth = np.linalg.eigvals(ai)
+            lam_k, lam_p = eigvals_host(t[i]), eigvals_host(tr[i])
+            own = matched_gap(lam_p, truth)
+            gap = matched_gap(lam_k, lam_p)
+            tol = 1e3 * eps * W * max(1.0, np.abs(ai).max()) + 4 * own
+            check(gap <= tol, f"{what} matrix {i}: eigenvalues within "
+                  f"{gap:.3e} <= {tol:.3e} of the plain version's (its own "
+                  f"distance to float64: {own:.3e})")
+            worst = max(worst, gap)
+        same = (its[:m].cpu() == itr).nonzero()[:, 0]
+        diff = max((maxabs(t[i].cpu() - tr[i]) for i in same.tolist()),
+                   default=float("nan"))
+        say(f"{what}: rounds {its.tolist()[:m]} (plain {itr.tolist()}); "
+            f"{len(same)} of {m} took as many rounds as the plain version, "
+            f"max |T - plain| over those {diff:.3e}; locked "
+            f"{int(lk.sum())}, iterations {int(its.sum())} in all")
+        if dtype == torch.float32:
+            errs["schur_small"] = max(errs["schur_small"], worst)
+
+
+def triangular_pair(rng, n, cluster, dtype):
+    """A split-complex upper triangular (1, n, n) of seeded normals, with a
+    cluster of three equal diagonal entries (5, 10, 70) when asked, its
+    diagonal and the xTREVC thresholds as schur_eigen sets them."""
+    tre = np.triu(rng.standard_normal((n, n)))
+    tim = np.triu(rng.standard_normal((n, n)))
+    if cluster:
+        for i in (10, 70):
+            tre[i, i], tim[i, i] = tre[5, 5], tim[5, 5]
+    tre, tim = (torch.from_numpy(x)[None].to(DEVICE, dtype)
+                for x in (tre, tim))
+    fi = torch.finfo(dtype)
+    small = fi.eps * torch.sqrt((tre ** 2 + tim ** 2).sum((-2, -1))) + fi.tiny
+    return (tre, tim, torch.diagonal(tre, dim1=-2, dim2=-1),
+            torch.diagonal(tim, dim1=-2, dim2=-1), small,
+            fi.max ** 0.5 / n)
+
+
+def unit_columns(x):
+    nrm = torch.sqrt((x[0] ** 2 + x[1] ** 2).sum(-2, keepdim=True))
+    nrm = torch.where(nrm == 0, 1.0, nrm)
+    return x[0] / nrm, x[1] / nrm
+
+
+def phase2_trevc(rng, errs, dtype):
+    """trevc_solve at config 4's n = 1024 and at 192 with a defective
+    cluster: the columns within TOL of the plain version's after
+    normalising each (columns are defined up to scale)."""
+    for n, cluster in ((1024, False), (192, True)):
+        args = triangular_pair(rng, n, cluster, dtype)
+        xk = unit_columns(tv.trevc_solve(*args))
+        xr = unit_columns(tv.trevc_solve_ref(*args))
+        err = max(maxabs(xk[0] - xr[0]), maxabs(xk[1] - xr[1]))
+        check(err <= TOL[dtype], f"trevc_solve (1, {n}, {n}) {dtype}"
+              f"{' with a cluster of three' if cluster else ''}: max |x - "
+              f"plain| over unit columns = {err:.3e} <= {TOL[dtype]:.0e}")
+        if dtype == torch.float32:
+            errs["trevc_solve"] = max(errs["trevc_solve"], err)
+
+
+def phase2_eigen(rng, errs):
+    for dtype in (torch.float32, torch.float64):
+        phase2_chase(rng, errs, dtype)
+        phase2_schur_small(rng, errs, dtype)
+        phase2_trevc(rng, errs, dtype)
+
+
+def schur_launches() -> dict:
+    """What a Schur loop launched, from its branch counts (reset with the
+    launch counters): schur_small once per AED call and per small_win,
+    bulge_chase_steps once per window slide."""
+    b = schur_mod.branches
+    say(f"Schur loop: {b['iterations']} iterations, {b['aed']} AED calls "
+        f"({b['sweep']} followed by a sweep), {b['small_win']} small_win, "
+        f"{b['standardize2']} standardize2, {b['chase']} classic chases, "
+        f"{b['slides']} slides; refinement on {b['refine']} matrices")
+    want = {}
+    if b["aed"] + b["small_win"]:
+        want["schur_small"] = b["aed"] + b["small_win"]
+    if b["slides"]:
+        want["bulge_chase_steps"] = b["slides"]
+    return want
+
+
+def eigen_gate(what, a, lam, vec):
+    """bench.py's config 4 gate per matrix, max‖A·v − λ·v‖ ≤
+    1e-4·max|A|·√N (bench.py:446-455), in split-complex arithmetic with
+    float64 products; finite values of the expected shapes and unit
+    columns. Returns the largest residual."""
+    lr, li = (x.double() for x in lam)
+    vr, vi = (x.double() for x in vec)
+    n = a.shape[-1]
+    check(tuple(lr.shape) == tuple(a.shape[:-1]) == tuple(li.shape)
+          and tuple(vr.shape) == tuple(a.shape) == tuple(vi.shape)
+          and all(bool(torch.isfinite(x).all()) for x in (lr, li, vr, vi)),
+          f"{what}: λ {tuple(lr.shape)}, V {tuple(vr.shape)}, finite")
+    a64 = a.double()
+    lr, li = lr[..., None, :], li[..., None, :]
+    er = torch.matmul(a64, vr) - (vr * lr - vi * li)
+    ei = torch.matmul(a64, vi) - (vr * li + vi * lr)
+    resid = torch.sqrt(er ** 2 + ei ** 2).amax((-2, -1))
+    tol = 1e-4 * a.abs().amax((-2, -1)).double() * n ** 0.5
+    w = int(torch.argmax(resid / tol))
+    check(bool((resid <= tol).all()),
+          f"{what}: max ‖A·v - λ·v‖ = {float(resid.max()):.3e}, worst "
+          f"matrix {w}: {float(resid.reshape(-1)[w]):.3e} <= "
+          f"{float(tol.reshape(-1)[w]):.3e} (bench.py:446)")
+    unit = ((vr ** 2 + vi ** 2).sum(-2) - 1).abs().max()
+    check(float(unit) <= 1e-4, f"{what}: unit columns, max |‖v‖² - 1| = "
+          f"{float(unit):.3e}")
+    return float(resid.max())
+
+
+def phase3_eigen(totals):
+    """Config 4's eigen (bench.py:444-457) on one 1024² float32 matrix of
+    standard normals from numpy (bench.py draws the same shape with
+    jax.random), schur_decomp of its balanced form, and eigen of a (256,
+    64, 64) batch: the whole-matrix schur_small route, one launch."""
+    rng = np.random.default_rng(SEED + 7)
+    n = 1024
+    s = torch.from_numpy(rng.standard_normal((n, n))).to(DEVICE,
+                                                          torch.float32)
+    reset_counts()
+    lam, vec = la.eigen(s, split=True)
+    counts = read_counts()
+    check_counts("config 4 eigen (1024, 1024)", counts,
+                 schur_launches() | {"trevc_solve": 1}, totals)
+    check(counts["schur_small"] >= 1 and counts["bulge_chase_steps"] >= 1,
+          "config 4 eigen launched schur_small and bulge_chase_steps")
+    say("config 4 eigen: the refinement pass "
+        + ("fired" if schur_mod.branches["refine"] else "did not fire"))
+    resid = eigen_gate("config 4 eigen (1024, 1024)", s, lam, vec)
+    say(f"config 4 eigen residual {resid:.3e}; the TPU reference's "
+        f"{TPU_EIGEN_RESIDUAL:.3e} (BENCH_r05.json)")
+    lam64 = np.linalg.eigvals(s.double().cpu().numpy())
+    gap = matched_gap(lam[0].double().cpu().numpy()
+                      + 1j * lam[1].double().cpu().numpy(), lam64)
+    say(f"config 4 eigen: eigenvalues within {gap:.3e} of float64 eigvals "
+        "on the host (nearest matching; printed, not gated)")
+    _, bal = la.eigen_balance_pre(s)
+    reset_counts()
+    q, t = la.schur_decomp(bal)
+    check_counts("schur_decomp of config 4's balanced matrix", read_counts(),
+                 schur_launches(), totals)
+    bmax = maxabs(bal)
+    recon = maxabs(torch.matmul(torch.matmul(q.double(), t.double()),
+                                q.double().mT) - bal.double())
+    orth = maxabs(torch.matmul(q.double().mT, q.double())
+                  - torch.eye(n, device=DEVICE, dtype=torch.float64))
+    eps = torch.finfo(torch.float32).eps
+    sub = torch.diagonal(t, -1) != 0
+    check(recon <= 1e-4 * bmax * n ** 0.5 and orth <= SCHUR_C * eps * n
+          and maxabs(torch.tril(t, -2)) == 0.0
+          and not bool((sub[:-1] & sub[1:]).any()),
+          f"schur_decomp (1024, 1024): max |Q·T·Qᵀ - B| = {recon:.3e} <= "
+          f"{1e-4 * bmax * n ** 0.5:.3e}, max |QᵀQ - I| = {orth:.3e} <= "
+          f"{SCHUR_C * eps * n:.3e}, T quasi-triangular; "
+          f"{schur_mod.branches['iterations']} outer iterations")
+    ab = torch.from_numpy(rng.standard_normal((256, 64, 64))).to(
+        DEVICE, torch.float32)
+    reset_counts()
+    lam, vec = la.eigen(ab, split=True)
+    check_counts("eigen (256, 64, 64)", read_counts(), schur_launches()
+                 | {"schur_small": 1}, totals)
+    eigen_gate("eigen (256, 64, 64)", ab, lam, vec)
+    return s, ab
+
+
 def config2_inputs(gen):
     """bench.py's config 2 (bench.py:369-395): SPD = a·aᵀ/N + 2I from a
     seeded normal (1024, 128, 128) and y (1024, 128, 1), float32."""
@@ -1087,7 +1401,165 @@ def rrqr_cost(a):
     return nb * flops, nb * nbytes
 
 
-def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in):
+def chase_cost(W, nb, sl, k0, lo, hi, size):
+    """(flops, bytes) of one slide: each active (bulge, step) reflector
+    updates three rows and three columns of B and three columns of V_acc,
+    about 10 flops a row or column entry (30·W); B read once, V_acc and
+    the carries written once."""
+    active = sum(1 for t in range(sl) for i in range(nb)
+                 if lo <= k0 + t - 3 * i <= hi - 2)
+    return active * 30 * W, size * (2 * W * W + 6 * nb)
+
+
+def schur_small_cost(a):
+    """(flops, bytes) of schur_small on a, from the rounds and chase steps
+    its plain version takes on the same input: 30·W flops a step (three
+    rows of T, three columns of T and Q), 2·W² a round (the norm and the
+    deflation scan); A read once, T, Q and the locks written once."""
+    nb, W, _ = a.shape
+    ss.plain_work.update(iterations=0, steps=0)
+    ss.schur_small_ref(a.cpu())
+    w = ss.plain_work
+    flops = w["steps"] * 30 * W + w["iterations"] * 2 * W * W
+    return flops, a.element_size() * nb * (3 * W * W + W)
+
+
+def trevc_cost(n, size):
+    """(flops, bytes) of trevc_solve: Σ_k Σ_{i<k} (k − i) complex
+    multiply-adds (8 flops each) and a Smith division per entry above the
+    diagonal; Tc and λ read once, x written once."""
+    macs = sum(k * (k + 1) // 2 for k in range(n))
+    return 8 * macs + 12 * n * (n - 1) // 2, size * (4 * n * n + 2 * n)
+
+
+def eigen_kernel_inputs(s):
+    """The three kernels' inputs at config 4's shapes, from its balanced
+    Hessenberg matrix: the AED window (1, 48, 48), small_win's (1, 128,
+    128), the first multishift slide's block with the AED window's 16
+    shifts, and the triangular Tc of its Schur form."""
+    _, bal = la.eigen_balance_pre(s)
+    h = schur_mod._hessenberg_core(bal[None])[0]
+    n = h.shape[-1]
+    win48 = h[:, n - 48:, n - 48:].contiguous()
+    win128 = h[:, n - 128:, n - 128:].contiguous()
+    tw = ss.schur_small(win48)[0][0]
+    re, im = schur_mod._block_eigvals_reim(
+        torch.where(torch.ones_like(tw).triu(-1) > 0, tw, 0.0))
+    rr, ri = re[-32:], im[-32:]
+    shifts = torch.stack([rr[0::2] + rr[1::2],
+                          rr[0::2] * rr[1::2] - ri[0::2] * ri[1::2]], 1)
+    q, t = la.schur_decomp(bal)
+    _, tc, lam = schur_mod._complex_triangularize_reim(q[None], t[None])
+    fi = torch.finfo(t.dtype)
+    small = fi.eps * torch.sqrt((tc[0] ** 2 + tc[1] ** 2).sum((-2, -1))) \
+        + fi.tiny
+    trevc_in = (tc[0], tc[1], lam[0], lam[1], small, fi.max ** 0.5 / n)
+    return win48, win128, h[0, :128, :128].contiguous(), shifts, trevc_in
+
+
+def eigen_rows(counts, errs, s, ab):
+    """The kernels line's rows of schur_small, bulge_chase_steps and
+    trevc_solve at config 4's shapes, the batch's schur_small beside them.
+    No single PyTorch call computes a multishift slide, the real Schur form
+    of a small block or xTREVC: library_ms is null."""
+    win48, win128, blk, shifts, trevc_in = eigen_kernel_inputs(s)
+    W, nb = 128, 16
+    sl = W - 3 * nb
+    p0 = torch.zeros((nb, 3), device=DEVICE)
+    size = blk.element_size()
+    rows = []
+    for name, src, repl, kern, plain, plain_iters, cost, shape in (
+            ("schur_small", "nd4js_tpu_torch/csrc/schur_small.cu",
+             "nd4js_tpu/ops/schur_small.py:249",
+             lambda: ss.schur_small(win48), lambda: ss.schur_small_ref(win48),
+             1, schur_small_cost(win48), list(win48.shape)),
+            ("bulge_chase_steps", "nd4js_tpu_torch/csrc/bulge_chase.cu",
+             "nd4js_tpu/ops/bulge_chase.py:236",
+             lambda: bc.bulge_chase_steps(blk, p0, shifts, 0, 0, W - 2, sl,
+                                          True),
+             lambda: bc.bulge_chase_steps_ref(blk, p0, shifts, 0, 0, W - 2,
+                                              sl, True),
+             2, chase_cost(W, nb, sl, 0, 0, W - 2, size), [W, W, nb, sl]),
+            ("trevc_solve", "nd4js_tpu_torch/csrc/trevc_solve.cu",
+             "nd4js_tpu/ops/trevc_solve.py:164",
+             lambda: tv.trevc_solve(*trevc_in),
+             lambda: tv.trevc_solve_ref(*trevc_in), 2,
+             trevc_cost(trevc_in[0].shape[-1], size),
+             list(trevc_in[0].shape))):
+        t_bound, by = bound(*cost)
+        row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
+               "launches": counts[name], "max_abs_err": errs[name],
+               "ms": cuda_ms(kern, 10),
+               "plain_ms": cuda_ms(plain, plain_iters),
+               "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+               "shape": shape, "dtype": "float32"}
+        say(f"{name} {shape}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library none, bound {t_bound:.6f} ms "
+            f"({by})")
+        rows.append(row)
+    # schur_small also at small_win's block and at the whole-matrix route's
+    # batch of 64² Hessenberg matrices (its bound from the plain version's
+    # work on SCHUR_SAMPLE of them, scaled to the batch)
+    _, bal = la.eigen_balance_pre(ab)
+    hb = schur_mod._hessenberg_core(bal)[0].contiguous()
+    fl, nbytes = schur_small_cost(hb[:SCHUR_SAMPLE])
+    scale = hb.shape[0] / SCHUR_SAMPLE
+    others = []
+    for a, cost, plain_iters in ((win128, schur_small_cost(win128), 1),
+                                 (hb, (fl * scale, nbytes * scale), 0)):
+        t_bound, by = bound(*cost)
+        other = {"shape": list(a.shape),
+                 "ms": cuda_ms(lambda x=a: ss.schur_small(x), 5),
+                 "bound_ms": t_bound, "bound_by": by}
+        if plain_iters:
+            other["plain_ms"] = cuda_ms(lambda x=a: ss.schur_small_ref(x),
+                                        plain_iters)
+        others.append(other)
+        say(f"schur_small {other['shape']}: kernel {other['ms']:.4f} ms, "
+            f"plain {other.get('plain_ms', float('nan')):.4f} ms, bound "
+            f"{t_bound:.6f} ms ({by})"
+            + ("" if plain_iters else f", estimated from {SCHUR_SAMPLE} of "
+               f"{a.shape[0]} matrices; plain not timed"))
+    rows[0]["other_shapes"] = others
+    return rows
+
+
+def eigen_walls(s, ab):
+    wall = {"config 4 eigen (1024, 1024)":
+            wall_ms(lambda: la.eigen(s, split=True)),
+            "eigen (256, 64, 64)": wall_ms(lambda: la.eigen(ab, split=True))}
+    for what, x in (("(1024, 1024)", s), ("(256, 64, 64)", ab)):
+        try:
+            wall[f"torch.linalg.eig {what}, yardstick"] = \
+                wall_ms(lambda x=x: torch.linalg.eig(x))
+        except Exception as exc:      # a yardstick, not a check
+            say(f"torch.linalg.eig {what} on the card: {type(exc).__name__}")
+    parts = [(eigen_mod, "eigen_balance_pre", "balancing"),
+             (schur_mod, "_hessenberg_core", "Hessenberg"),
+             (schur_mod, "_schur_loop", "Schur loop"),
+             (schur_mod, "_aed", "of which AED"),
+             (schur_mod, "_chase_multishift", "of which sweeps and chases"),
+             (schur_mod, "_small_win", "of which small_win"),
+             (schur_mod, "_standardize2", "of which standardize2"),
+             (schur_mod, "_complex_triangularize_reim", "triangularisation"),
+             (schur_mod, "trevc_solve", "trevc_solve"),
+             (schur_mod, "_trevc_refine", "refinement"),
+             (schur_mod, "_back_transform", "final GEMM")]
+    top = ("eigen_balance_pre", "_hessenberg_core", "_schur_loop",
+           "_complex_triangularize_reim", "trevc_solve", "_trevc_refine",
+           "_back_transform")
+    reset_counts()
+    host_breakdown("config 4 eigen (1024, 1024)",
+                   lambda: la.eigen(s, split=True), parts, top)
+    b = schur_mod.branches
+    say(f"config 4 eigen breakdown's two calls: {b['iterations']} Schur "
+        f"iterations, {b['aed']} AED, {b['sweep']} sweeps, {b['small_win']} "
+        f"small_win, {b['standardize2']} standardize2, {b['chase']} classic "
+        f"chases, {b['slides']} slides, refinement on {b['refine']}")
+    return wall
+
+
+def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     a, _ = batch
     a1, y1 = cfg1
     spd2, y2 = cfg2
@@ -1205,6 +1677,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in):
         by_name[name]["other_shapes"] = [other]
         say(f"{name} {shape}: kernel {other['ms']:.4f} ms, plain "
             f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
+    rows += eigen_rows(counts, errs, *geig)
 
     a, y = batch
 
@@ -1311,6 +1784,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in):
         "ms: " + ", ".join(f"{t:.4f}" for t in lpanels)
         + f"; sum {sum(lpanels):.4f}; whole lu_decomp on the device "
         f"{cuda_ms(lambda: la.lu_decomp(a), 3):.4f}")
+    wall |= eigen_walls(*geig)
     return rows, wall
 
 
@@ -1330,10 +1804,10 @@ def main():
     with phase("2 kernels against their plain versions"):
         errs = phase2(rng)
     with phase("3 main path"):
-        counts, batch, cfg1, cfg2, spd512, eig, svd_in = phase3(gen)
+        counts, batch, cfg1, cfg2, spd512, eig, svd_in, geig = phase3(gen)
     with phase("4 times"):
         rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig,
-                            svd_in)
+                            svd_in, geig)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():

@@ -19,7 +19,10 @@ and ``qr_gesv``; LU, Cholesky and determinants with ``chol_leaf``,
 ``la.lstsq``, ``la.eigh_via_svd``) with ``jacobi_sweeps``; and the
 rank-revealing QR and solves (``la.rrqr_decomp``, ``la.rrqr_lstsq``,
 ``la.rrqr_solve``, ``la.solve``, ``la.permute_rows`` and kin) with
-``rrqr_kernel``.
+``rrqr_kernel``; and general eigen (``la.hessenberg_decomp``,
+``la.schur_decomp``, ``la.schur_eigenvals``, ``la.schur_eigen``,
+``la.eigen``, ``la.eigenvals``, ``la.eigen_balance_pre``) with
+``schur_small``, ``bulge_chase_steps`` and ``trevc_solve``.
 """
 from . import config
 from . import la

@@ -1,7 +1,9 @@
 """Dense linear algebra, batched over leading dims."""
 from .cholesky import cholesky_decomp, cholesky_solve
 from .det import det, det_tri, slogdet, slogdet_tri
+from .eigen import eigen, eigen_balance_pre, eigenvals
 from .eigh import eigh, eigh_jacobi, eigh_tridiag_dc, eigh_via_svd
+from .hessenberg import hessenberg_decomp
 from .lu import lu_decomp, lu_solve, lu_solve_fused
 from .matmul import matmul2
 from .norm import norm_fro
@@ -11,6 +13,7 @@ from .qr import (qr_decomp, qr_decomp_full, qr_lstsq, qr_lstsq_fused,
                  qr_solve)
 from .rrqr import (rrqr_decomp, rrqr_decomp_full, rrqr_lstsq, rrqr_rank,
                    rrqr_solve)
+from .schur import schur_decomp, schur_eigen, schur_eigenvals
 from .singular_matrix_solve_error import SingularMatrixSolveError
 from .solve import solve
 from .svd import lstsq, rank, svd_decomp, svd_lstsq, svd_rank, svd_solve
@@ -20,13 +23,15 @@ from .tri import tril, tril_solve, tril_t_solve, triu, triu_solve, triu_t_solve
 from .tridiag_dc import tridiag_eigh_dc
 
 __all__ = ["SingularMatrixSolveError", "cholesky_decomp", "cholesky_solve",
-           "det", "det_tri", "eigh", "eigh_jacobi", "eigh_tridiag_dc",
-           "eigh_via_svd", "invert_permutation", "lstsq", "lu_decomp",
-           "lu_solve", "lu_solve_fused", "matmul2", "norm_fro",
-           "permute_cols", "permute_rows", "qr_decomp", "qr_decomp_full",
-           "qr_lstsq", "qr_lstsq_fused", "qr_solve", "rank", "rrqr_decomp",
+           "det", "det_tri", "eigen", "eigen_balance_pre", "eigenvals", "eigh",
+           "eigh_jacobi", "eigh_tridiag_dc", "eigh_via_svd",
+           "hessenberg_decomp", "invert_permutation", "lstsq", "lu_decomp",
+           "lu_solve", "lu_solve_fused", "matmul2", "norm_fro", "permute_cols",
+           "permute_rows", "qr_decomp", "qr_decomp_full", "qr_lstsq",
+           "qr_lstsq_fused", "qr_solve", "rank", "rrqr_decomp",
            "rrqr_decomp_full", "rrqr_lstsq", "rrqr_rank", "rrqr_solve",
-           "slogdet", "slogdet_tri", "solve", "svd_decomp", "svd_gram",
-           "svd_jac_1sided", "svd_lstsq", "svd_rank", "svd_solve", "tril",
-           "tril_solve", "tril_t_solve", "tridiag_eigh_dc", "triu",
-           "triu_solve", "triu_t_solve", "unpermute_cols", "unpermute_rows"]
+           "schur_decomp", "schur_eigen", "schur_eigenvals", "slogdet",
+           "slogdet_tri", "solve", "svd_decomp", "svd_gram", "svd_jac_1sided",
+           "svd_lstsq", "svd_rank", "svd_solve", "tridiag_eigh_dc", "tril",
+           "tril_solve", "tril_t_solve", "triu", "triu_solve", "triu_t_solve",
+           "unpermute_cols", "unpermute_rows"]

@@ -37,8 +37,9 @@ SMEM_MAX = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures of csrc/*.cu: every pointer and the stream as c_void_p
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# C signatures of csrc/*.cu: every pointer and the stream as c_void_p, a
+# real scalar as a double in both precisions
 _SIGNATURES = {
     "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _P]),
     "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
@@ -56,6 +57,12 @@ _SIGNATURES = {
     "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "nd4js_rrqr_f64": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "nd4js_schur_small_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "nd4js_schur_small_f64": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "nd4js_bulge_chase_f32": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "nd4js_bulge_chase_f64": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "nd4js_trevc_solve_f32": (_I, [_P] * 7 + [_I, _I, _D, _P]),
+    "nd4js_trevc_solve_f64": (_I, [_P] * 7 + [_I, _I, _D, _P]),
 }
 
 _built = None

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels and its QR, Cholesky, LU, symmetric eigen, SVD
-and rank-revealing QR slices on the card.
+"""The port's CUDA kernels and its QR, Cholesky, LU, symmetric eigen, SVD,
+rank-revealing QR and general eigen slices on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine without
 them, skipping the JAX-based tests/conftest.py:
@@ -23,6 +23,13 @@ and consistent on a random one, in both of its regimes (a sweep in shared
 memory, or one launch a round); ``rrqr_kernel``'s pivots exactly equal (in
 float32, on the matrices where no near-tie flipped one) and R, V, taus
 within 32·eps·max(M, N)·max|A|, in both of its regimes.
+``bulge_chase_steps``' V_acc and carries within TOL plus 100 times the
+plain version's own change under an eps perturbation of its input (a long
+bulge train amplifies rounding), V_acc orthogonal; ``schur_small`` by its
+contract (64·eps·W) and its eigenvalues against the plain version's
+(rounding may flip a deflation decision, so T itself is not compared);
+``trevc_solve``'s unit columns within TOL of the plain version's; and the
+general eigen slice under bench.py's config 4 gate.
 """
 import importlib
 
@@ -39,8 +46,12 @@ from nd4js_tpu_torch.ops import jacobi_sweep as js
 from nd4js_tpu_torch.ops import lu_panel as lp
 from nd4js_tpu_torch.ops import rrqr_kernel as rk
 from nd4js_tpu_torch.ops import sytrd_panel as sp
+from nd4js_tpu_torch.ops import bulge_chase as bc
+from nd4js_tpu_torch.ops import schur_small as ss
+from nd4js_tpu_torch.ops import trevc_solve as tv
 
 rrqr_mod = importlib.import_module("nd4js_tpu_torch.la.rrqr")
+schur_mod = importlib.import_module("nd4js_tpu_torch.la.schur")
 
 pytestmark = pytest.mark.gpu
 
@@ -618,3 +629,165 @@ def test_svd_rrqr_slice_on_the_card_matches_the_cpu(cuda, dtype):
                    torch.from_numpy(ys).to(dtype))
     assert_backward_stable(torch.from_numpy(sq).to(dtype),
                            torch.from_numpy(ys).to(dtype), xs, xsc, dtype)
+
+
+# ---------------------------------------------------------- general eigen
+
+
+@pytest.mark.parametrize("w,nb,k0", [(128, 16, 0), (128, 16, 80), (128, 1, 0),
+                                     (32, 2, 7)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bulge_chase_kernel_matches_plain_version(cuda, w, nb, k0, dtype):
+    rng = np.random.default_rng(70 + w + nb + k0)
+    sl, lo, hi = w - 3 * nb, 0, w - 2
+    seed = k0 == 0
+    b = _on(cuda, np.triu(rng.standard_normal((w, w)), -1), dtype)
+    sh = _on(cuda, rng.standard_normal((nb, 2)), dtype)
+    p = _on(cuda, np.zeros((nb, 3)) if seed else
+            rng.standard_normal((nb, 3)), dtype)
+    before = bc.launches
+    v, pp = bc.bulge_chase_steps(b, p, sh, k0, lo, hi, sl, seed)
+    torch.cuda.synchronize()
+    assert bc.launches == before + 1
+    vr, pr = bc.bulge_chase_steps_ref(b, p, sh, k0, lo, hi, sl, seed)
+    eps = torch.finfo(dtype).eps
+    noise = _on(cuda, rng.standard_normal((w, w)), dtype)
+    vs, ps = bc.bulge_chase_steps_ref(b + eps * b * noise, p, sh, k0, lo, hi,
+                                      sl, seed)
+    sens_v = float((vs - vr).abs().max())
+    sens_p = float((ps - pr).abs().max())
+    assert float((v - vr).abs().max()) <= TOL[dtype] + 100 * sens_v
+    assert float((pp - pr).abs().max()) <= \
+        TOL[dtype] * max(1.0, float(pr.abs().max())) + 100 * sens_p
+    eye = torch.eye(w, device=cuda, dtype=dtype)
+    assert float((v.mT @ v - eye).abs().max()) <= 64 * eps * w
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 48), (1, 128, 128), (6, 64, 64),
+                                   (3, 8, 8)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_schur_small_kernel_contract_and_eigenvalues(cuda, shape, dtype):
+    rng = np.random.default_rng(80 + shape[-1])
+    a = _on(cuda, np.triu(rng.standard_normal(shape), -1), dtype)
+    before = ss.launches
+    t, q, lk, its = ss.schur_small(a)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    nb, w, _ = shape
+    eps = torch.finfo(dtype).eps
+    unit = 64 * eps * w
+    a64, t64, q64 = a.double(), t.double(), q.double()
+    amax = float(a.abs().max())
+    eye = torch.eye(w, device=cuda, dtype=torch.float64)
+    assert float((q64.mT @ q64 - eye).abs().max()) <= unit
+    assert float((q64 @ t64 @ q64.mT - a64).abs().max()) <= unit * amax
+    assert float(torch.tril(t64, -2).abs().max()) <= unit * amax
+    assert bool((its > 0).all() and (its <= 40 * w).all())
+    tr, _, lkr, _ = ss.schur_small_ref(a.cpu())
+    for i in range(nb):
+        for j in (lk[i, :w - 1] > 0.5).nonzero()[:, 0].tolist():
+            blk = t64[i, j:j + 2, j:j + 2]
+            assert float((blk[0, 0] - blk[1, 1]) ** 2
+                         + 4 * blk[0, 1] * blk[1, 0]) < 0
+        ev = np.linalg.eigvals(np.triu(t64[i].cpu().numpy(), -1))
+        evr = list(np.linalg.eigvals(np.triu(tr[i].double().numpy(), -1)))
+        truth = np.linalg.eigvals(a64[i].cpu().numpy())
+        own = max(np.min(np.abs(truth - x)) for x in evr)
+        tol = 1e3 * eps * w * max(1.0, amax) + 4 * own
+        for x in ev:
+            d = np.abs(np.asarray(evr) - x)
+            k = int(np.argmin(d))
+            assert d[k] <= tol
+            evr.pop(k)
+
+
+@pytest.mark.parametrize("n,cluster", [(192, True), (256, False),
+                                       (100, True)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_trevc_solve_kernel_matches_plain_version(cuda, n, cluster, dtype):
+    """n = 100 leaves a ragged tile of columns; the cluster is three equal
+    diagonal entries (rows 5, 10, 70)."""
+    rng = np.random.default_rng(90 + n)
+    tre = np.triu(rng.standard_normal((2, n, n)))
+    tim = np.triu(rng.standard_normal((2, n, n)))
+    if cluster:
+        for i in (10, 70):
+            tre[:, i, i], tim[:, i, i] = tre[:, 5, 5], tim[:, 5, 5]
+    tre, tim = _on(cuda, tre, dtype), _on(cuda, tim, dtype)
+    fi = torch.finfo(dtype)
+    small = fi.eps * torch.sqrt((tre ** 2 + tim ** 2).sum((-2, -1))) + fi.tiny
+    args = (tre, tim, torch.diagonal(tre, dim1=-2, dim2=-1),
+            torch.diagonal(tim, dim1=-2, dim2=-1), small, fi.max ** 0.5 / n)
+    before = tv.launches
+    xk = tv.trevc_solve(*args)
+    torch.cuda.synchronize()
+    assert tv.launches == before + 1
+    xr = tv.trevc_solve_ref(*args)
+
+    def unit_cols(x):
+        nrm = torch.sqrt((x[0] ** 2 + x[1] ** 2).sum(-2, keepdim=True))
+        return x[0] / nrm, x[1] / nrm
+
+    for g, r in zip(unit_cols(xk), unit_cols(xr)):
+        assert float((g - r).abs().max()) <= TOL[dtype]
+    assert bool((torch.tril(xk[0], -1) == 0).all())
+
+
+def _eigen_resid(a, lam, vec):
+    lr, li = (x.double()[..., None, :] for x in lam)
+    vr, vi = (x.double() for x in vec)
+    er = a.double() @ vr - (vr * lr - vi * li)
+    ei = a.double() @ vi - (vr * li + vi * lr)
+    return torch.sqrt(er ** 2 + ei ** 2).amax((-2, -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eigen_slice_on_the_card_matches_the_cpu(cuda, dtype):
+    """eigen at n = 192 (AED, sweeps, small_win and the trevc_solve kernel),
+    n = 200 (trevc's plain blocked form on the card) and a (4, 30, 30)
+    batch (one schur_small launch): bench.py's gate per matrix, unit
+    columns, and the eigenvalues nearest-matched with the CPU's."""
+    rng = np.random.default_rng(95)
+    for shape in ((192, 192), (200, 200), (4, 30, 30)):
+        a = rng.standard_normal(shape)
+        n = shape[-1]
+        before = (ss.launches, bc.launches, tv.launches)
+        lam, vec = la.eigen(_on(cuda, a, dtype), split=True)
+        torch.cuda.synchronize()
+        got = (ss.launches - before[0], bc.launches - before[1],
+               tv.launches - before[2])
+        if len(shape) == 3:
+            assert got == (1, 0, 0)
+        else:
+            assert got[0] > 0 and got[1] > 0 and got[2] == int(n % 64 == 0)
+        resid = _eigen_resid(_on(cuda, a, dtype), lam, vec)
+        gate = 1e-4 * np.abs(a).max(axis=(-2, -1)) * n ** 0.5
+        assert bool((resid.cpu().numpy() <= gate).all())
+        nrm = (vec[0].double() ** 2 + vec[1].double() ** 2).sum(-2)
+        assert float((nrm - 1).abs().max()) <= 1e-4
+        lc = la.eigenvals(torch.from_numpy(a).to(dtype), split=True)
+        lk = (lam[0].cpu().double().numpy()
+              + 1j * lam[1].cpu().double().numpy())
+        lcc = lc[0].double().numpy() + 1j * lc[1].double().numpy()
+        for i in range(lk.reshape(-1, n).shape[0]):
+            ref = list(lcc.reshape(-1, n)[i])
+            for x in lk.reshape(-1, n)[i]:
+                d = np.abs(np.asarray(ref) - x)
+                k = int(np.argmin(d))
+                assert d[k] <= 100 * TOL[dtype] * np.abs(a).max() * n ** 0.5
+                ref.pop(k)
+
+
+def test_config4_eigen_meets_the_bench_gate(cuda):
+    """Config 4's eigen: one 1024² float32 matrix of standard normals under
+    bench.py's gate max‖A·v − λ·v‖ ≤ 1e-4·max|A|·√N (bench.py:446-455),
+    through all three kernels, trevc_solve once."""
+    a = _on(cuda, np.random.default_rng(96).standard_normal((1024, 1024)),
+            torch.float32)
+    before = (ss.launches, bc.launches, tv.launches)
+    lam, vec = la.eigen(a, split=True)
+    torch.cuda.synchronize()
+    assert ss.launches > before[0] and bc.launches > before[1]
+    assert tv.launches == before[2] + 1
+    resid = float(_eigen_resid(a, lam, vec).max())
+    assert resid <= 1e-4 * float(a.abs().max()) * 1024 ** 0.5

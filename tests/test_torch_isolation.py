@@ -61,6 +61,17 @@ def test_the_svd_and_rrqr_modules_are_among_those_checked():
             "ops/jacobi_sweep", "ops/rrqr_kernel"} <= found
 
 
+def test_the_general_eigen_modules_and_kernels_are_among_those_checked():
+    """The general eigen slice's modules are found by the walk above, and
+    its three kernels' sources by the source scans below."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"core/cpx", "la/hessenberg", "la/schur", "la/eigen",
+            "ops/bulge_chase", "ops/schur_small", "ops/trevc_solve"} <= found
+    sources = {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert {"bulge_chase.cu", "schur_small.cu", "trevc_solve.cu"} <= sources
+
+
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         assert not _top_level_imports(path) & set(FORBIDDEN), path
