@@ -20,8 +20,12 @@
 // a step in the normal orientation. The thread of bulge i then reads its next
 // carry and builds its next reflector, so a step costs three barriers.
 //
-// Bound on the H100: the step chain's latency; per call SL·NB reflectors at
-// ~18·W flops each against 2·W² values moved (B in, V_acc out).
+// Bound on the H100: the step chain's latency. The bound reported beside
+// the kernel counts what each of the SL·NB reflector steps must update,
+// ~10 flops for each nonzero column of B's three rows (W − kb + 1 for a
+// Hessenberg block with its bulges), each nonzero row of B's three columns
+// (kb + 4) and each nonzero row of V_acc's three columns, against 2·W²
+// values moved (B in, V_acc out).
 //
 // Memory: B in shared memory; V_acc beside it when both fit a block's 227 KB
 // (W = 128 in float32), otherwise V_acc is updated in place in the output in

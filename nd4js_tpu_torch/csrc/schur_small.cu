@@ -32,9 +32,12 @@
 // from one thread's scan of the subdiagonal, ‖T‖_F from a block reduction.
 //
 // Bound on the H100: neither bytes nor operations but the latency of the
-// step chain: each chase step is ~6·W + 6·W flops behind two barriers, and
-// the steps of a matrix are sequential. The bound reported beside the
-// kernel counts the plain version's chase steps at ~12·W flops each.
+// step chain: each chase step is a few W flops behind two barriers, and the
+// steps of a matrix are sequential. The bound reported beside the kernel
+// counts, over the plain version's trajectory on the same input, only the
+// entries each step must update: ~10 flops for each of the (W − k + 1)
+// columns of T's three rows, the (k + 4) rows of its three columns and the
+// nonzero rows of Q's three columns.
 //
 // Memory: T lives in shared memory (W² values); Q too when both fit a
 // block's 227 KB (W = 128 in float32), otherwise Q is updated in place in
@@ -167,6 +170,9 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
       const T aa = t[lo * W + lo], bb = t[lo * W + lo + 1];
       const T cc = t[(lo + 1) * W + lo], dd = t[(lo + 1) * W + lo + 1];
       const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
+      // every thread has read the block before apply_rot2 rewrites it (a
+      // late reader would build another rotation, or skip its barriers)
+      __syncthreads();
       if (disc >= T(0)) {
         // cancellation-free: λ−aa = −sgn(p)(|p|+sq), λ−dd = −sgn(p)·bc/(sq+|p|)
         const T p = T(0.5) * (aa - dd);

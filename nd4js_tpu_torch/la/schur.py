@@ -181,6 +181,23 @@ def _rot2(g1, g2):
             torch.where(nrm == 0, 0.0, g2 / safe))
 
 
+def _std2_rot(aa, bb, cc, dd):
+    """The cancellation-free rotation that triangularises [[aa, bb], [cc,
+    dd]] when its discriminant is ≥ 0: λ−aa = −sgn(p)(|p|+sq) and λ−dd =
+    −sgn(p)·bc/(sq+|p|), p = (aa−dd)/2. Returns (cs, sn, disc)."""
+    disc = (aa - dd) * (aa - dd) + 4 * bb * cc
+    p = 0.5 * (aa - dd)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0)) * 0.5
+    sgn = torch.where(p >= 0, 1.0, -1.0)
+    lam_m_aa = -sgn * (p.abs() + sq)
+    den = sq + p.abs()
+    lam_m_dd = -sgn * bb * cc / torch.where(den == 0, 1.0, den)
+    big_b = bb.abs() >= cc.abs()
+    cs, sn = _rot2(torch.where(big_b, bb, lam_m_dd),
+                   torch.where(big_b, lam_m_aa, cc))
+    return cs, sn, disc
+
+
 def _transform_window(h, q, w0: int, u):
     """H ← Uᵀ·H on rows w0.., H ← H·U and Q ← Q·U on columns w0.. for the
     (W, W) window transform U, three GEMMs against the full matrix, in
@@ -329,19 +346,7 @@ def _iso_pairs(h, locked):
     right_ok = torch.cat([~live[1:], tt])
     iso = live & left_ok & right_ok
     d0 = torch.diagonal(h)
-    aa, dd = d0[:-1], d0[1:]
-    bb = torch.diagonal(h, offset=1)
-    cc = sd
-    disc = (aa - dd) * (aa - dd) + 4 * bb * cc
-    p = 0.5 * (aa - dd)
-    sq = torch.sqrt(torch.clamp(disc, min=0.0)) * 0.5
-    sgn = torch.where(p >= 0, 1.0, -1.0)
-    lam_m_aa = -sgn * (p.abs() + sq)
-    den = sq + p.abs()
-    lam_m_dd = -sgn * bb * cc / torch.where(den == 0, 1.0, den)
-    big_b = bb.abs() >= cc.abs()
-    cs, sn = _rot2(torch.where(big_b, bb, lam_m_dd),
-                   torch.where(big_b, lam_m_aa, cc))
+    cs, sn, disc = _std2_rot(d0[:-1], torch.diagonal(h, offset=1), sd, d0[1:])
     rot = iso & (disc >= 0)
     lock_new = iso & (disc < 0)
     return rot, lock_new, torch.where(rot, cs, 1.0), torch.where(rot, sn, 0.0)
@@ -524,18 +529,7 @@ def _schur_loop(h, q, max_iter_factor: int):
 def _schur_2x2(a):
     """Closed-form standardisation of a batch of 2×2 matrices
     (``nd4js_tpu/la/schur.py:378-405``): (T, G)."""
-    aa, bb = a[:, 0, 0], a[:, 0, 1]
-    cc, dd = a[:, 1, 0], a[:, 1, 1]
-    disc = (aa - dd) * (aa - dd) + 4 * bb * cc
-    p = 0.5 * (aa - dd)
-    sq2 = torch.sqrt(torch.clamp(disc, min=0.0)) * 0.5
-    sgn = torch.where(p >= 0, 1.0, -1.0)
-    lam_m_aa = -sgn * (p.abs() + sq2)
-    den = sq2 + p.abs()
-    lam_m_dd = -sgn * bb * cc / torch.where(den == 0, 1.0, den)
-    big_b = bb.abs() >= cc.abs()
-    cs, sn = _rot2(torch.where(big_b, bb, lam_m_dd),
-                   torch.where(big_b, lam_m_aa, cc))
+    cs, sn, disc = _std2_rot(a[:, 0, 0], a[:, 0, 1], a[:, 1, 0], a[:, 1, 1])
     real = disc >= 0
     cs = torch.where(real, cs, 1.0)
     sn = torch.where(real, sn, 0.0)
@@ -694,35 +688,6 @@ def _complex_triangularize_reim(q, t):
     return qc, tc, lam_out
 
 
-def _trevc_unblocked(tc, lam, smallnum, bignum: float):
-    """The row-at-a-time backward substitution for n ≤ 128
-    (``nd4js_tpu/la/schur.py:1147-1177``), batched."""
-    B, n, _ = tc[0].shape
-    dt = tc[0].dtype
-    col = torch.arange(n, device=tc[0].device)
-    small = smallnum[:, None]
-    x = (torch.eye(n, dtype=dt, device=col.device).repeat(B, 1, 1),
-         tc[0].new_zeros((B, n, n)))
-    for i in range(n - 2, -1, -1):
-        row = (tc[0][:, i, i + 1:, None], tc[1][:, i, i + 1:, None])
-        prod = cpx.mul(row, (x[0][:, i + 1:], x[1][:, i + 1:]))
-        acc = (prod[0].sum(1), prod[1].sum(1))
-        den = (tc[0][:, i, i, None] - lam[0], tc[1][:, i, i, None] - lam[1])
-        clamp = cpx.cabs(den) <= small
-        den = (torch.where(clamp, small, den[0]),
-               torch.where(clamp, 0.0, den[1]))
-        xi = cpx.div((-acc[0], -acc[1]), den)
-        xi = (torch.where(col > i, xi[0], torch.where(col == i, 1.0, 0.0)),
-              torch.where(col > i, xi[1], 0.0))
-        m = torch.maximum(xi[0].abs(), xi[1].abs())
-        f = torch.where(m > bignum, 1.0 / torch.where(m > bignum, m, 1.0), 1.0)
-        fr = f[:, None, :]
-        x = (x[0] * fr, x[1] * fr)
-        x[0][:, i] = xi[0] * f
-        x[1][:, i] = xi[1] * f
-    return x
-
-
 def _refine_row(tii, lam, smallnum, acc, rhs):
     """One row of the refinement solve: (rhs − acc)/(T[i, i] − λ) with
     |den| < smallnum clamped, then the 1e18 growth factor."""
@@ -791,10 +756,11 @@ def _eigen_core(q, t):
     bignum = (fi.max ** 0.5) / max(n, 1)
     if n > 128 and n % 64 == 0:
         x = trevc_solve(tc[0], tc[1], lam[0], lam[1], smallnum, bignum)
-    elif n > 128:
-        x = trevc_solve_ref(tc[0], tc[1], lam[0], lam[1], smallnum, bignum)
     else:
-        x = _trevc_unblocked(tc, lam, smallnum, bignum)
+        # the blocked form on the card, and for n ≤ 128 one block of all
+        # rows: the row-at-a-time loop of nd4js_tpu/la/schur.py:1147-1177
+        x = trevc_solve_ref(tc[0], tc[1], lam[0], lam[1], smallnum, bignum,
+                            nbk=64 if n > 128 else n)
 
     def tri_resid(z):
         r_ = cpx.sub(cpx.matmul(tc, z),

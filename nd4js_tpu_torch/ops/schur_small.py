@@ -28,10 +28,6 @@ MAX_W = 128        # widest block the kernel takes
 # to it, one per call (one call is the whole batch).
 launches = 0
 
-# Rounds and chase steps the plain version took since the last reset: the
-# work a bound on the kernel's time counts.
-plain_work = {"iterations": 0, "steps": 0}
-
 
 def _house3(p0: float, p1: float, p2: float):
     """``la/schur.py::_house3`` on host floats: (v1, v2, tau), v0 = 1."""
@@ -66,7 +62,9 @@ def _schur_small_one(a, max_iter: int):
     (``nd4js_tpu/ops/schur_small.py:105-233``) with the control and the
     reflectors' scalars on the host, and per chase step one 3-row update
     of T and one 3-column update of T and Q together (T and Q are kept
-    stacked, tq = [T; Q])."""
+    stacked, tq = [T; Q]). Returns (t, q, locked, rounds, moves): moves
+    lists the window (lo, hi) of each round that transformed T, a chase
+    over [lo, hi) or a 2×2 rotation at lo = hi − 2."""
     W = a.shape[-1]
     dt = a.dtype
     eps = torch.finfo(dt).eps
@@ -74,6 +72,7 @@ def _schur_small_one(a, max_iter: int):
     t = tq[:W]
     lk = [False] * W
     it, stuck, hi_prev = 0, 0, -1
+    moves = []
     while hi_prev != 0 and it < max_iter:
         # deflation scan with the norm floor, in the working precision
         d = torch.diagonal(t).abs()
@@ -107,6 +106,7 @@ def _schur_small_one(a, max_iter: int):
                                lam_m_aa if big_b else cc)
                 _apply_rot2(tq, W, lo, cs, sn)
                 t[lo + 1, lo] = 0.0
+                moves.append((lo, hi))
             else:
                 lk[lo] = True
         elif hi > 0:
@@ -124,7 +124,6 @@ def _schur_small_one(a, max_iter: int):
             p0 = h00 * h00 + h01 * h10 - tr * h00 + det
             p1 = h10 * (h00 + h11 - tr)
             p2 = h10 * h21
-            plain_work["steps"] += hi - 2 - lo
             for k in range(lo, hi - 2):
                 v1, v2, tau = _house3(p0, p1, p2)
                 if tau != 0:
@@ -137,15 +136,15 @@ def _schur_small_one(a, max_iter: int):
                 p0, p1 = nxt[0], nxt[1]
                 p2 = nxt[2] if k + 3 < hi else 0.0
             _apply_rot2(tq, W, hi - 2, *_rot2(p0, p1))
+            moves.append((lo, hi))
         if hi > 0:
             stuck = 0 if hi - lo == 2 else stuck + 1
         if hi != hi_prev:
             stuck = 0
         hi_prev = hi
         it += 1
-    plain_work["iterations"] += it
     locked = torch.tensor([float(x) for x in lk], dtype=dt, device=a.device)
-    return t, tq[W:], locked, it
+    return t, tq[W:], locked, it, moves
 
 
 def schur_small_ref(a, max_iter_factor: int = 40):
@@ -156,7 +155,7 @@ def schur_small_ref(a, max_iter_factor: int = 40):
     if not out:
         return (a.clone(), a.clone(), a.new_zeros(a.shape[:-1]),
                 torch.zeros((0,), dtype=torch.int32, device=a.device))
-    t, q, lk, its = zip(*out)
+    t, q, lk, its, _ = zip(*out)
     return (torch.stack(t), torch.stack(q), torch.stack(lk),
             torch.tensor(its, dtype=torch.int32, device=a.device))
 

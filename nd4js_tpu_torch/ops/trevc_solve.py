@@ -22,16 +22,15 @@ __all__ = ["trevc_solve", "trevc_solve_ref"]
 # to it, one per call (one call is the whole batch).
 launches = 0
 
-_NBK = 64          # rows per block of the plain version
-
-
-def trevc_solve_ref(tc_re, tc_im, lam_re, lam_im, smallnum, bignum: float):
+def trevc_solve_ref(tc_re, tc_im, lam_re, lam_im, smallnum, bignum: float,
+                    nbk: int = 64):
     """Plain PyTorch version of the kernel: the blocked backward
     substitution ``_trevc_backsub_blocked``
     (``nd4js_tpu/la/schur.py:963-1035``) with the batch axis written out.
-    Rows are processed in blocks of 64 bottom-up; each block's sum over the
+    Rows are processed in blocks of nbk bottom-up; each block's sum over the
     rows below it is one complex GEMM, the in-block recurrence runs row by
-    row. tc: (B, n, n), lam: (B, n), smallnum: (B,). Returns x (re, im)."""
+    row (nbk ≥ n − 1: the unblocked loop). tc: (B, n, n), lam: (B, n),
+    smallnum: (B,). Returns x (re, im)."""
     B, n, _ = tc_re.shape
     dt, dev = tc_re.dtype, tc_re.device
     col = torch.arange(n, device=dev)
@@ -40,7 +39,7 @@ def trevc_solve_ref(tc_re, tc_im, lam_re, lam_im, smallnum, bignum: float):
          tc_re.new_zeros((B, n, n)))
     b1 = n - 1                      # row n − 1 keeps its unit
     while b1 > 0:
-        b0 = max(0, b1 - _NBK)
+        b0 = max(0, b1 - nbk)
         nb = b1 - b0
         tb = (tc_re[:, b0:b1, b0:b1], tc_im[:, b0:b1, b0:b1])
         # rows ≥ b1 of x are final: one complex GEMM for the whole block

@@ -9,7 +9,10 @@ with fixed seeds.
   kernel to its XLA form in float64: the same reflectors applied in
   another summation order), plus 100 times the reference's own change
   under an eps-level perturbation of its input (the long train
-  amplifies rounding; see the test), and V_acc orthogonal.
+  amplifies rounding; see the test); V_acc orthogonal, and the slide's
+  contract: Vᵀ·B·V Hessenberg outside the bulges' last positions, with
+  the carries equal to its bulge columns, within eps·W·max|B|. The
+  same trains over their first 8 steps entry by entry within 1e-12.
 * ``schur_small`` at n ∈ {8, 16, 24, 48}, a symmetric tridiagonal and a
   defective Jordan block: each side held to the contract of
   ``tests/test_schur_small.py`` (orthogonality, similarity and the junk
@@ -62,13 +65,53 @@ def _t(x):
 # ---------------------------------------------------------- bulge_chase
 
 
-def _chase_case(w, nb, k0_off):
+def _chase_case(w, nb, k0_off, lo=0):
+    """A slide's input as the Schur loop hands it over: a Hessenberg block,
+    zero subdiagonals at the window's edges and each carried bulge's
+    column B[kb..kb+2, kb−1] equal to its carry."""
     rng = np.random.default_rng(w * 100 + nb * 10 + k0_off)
     b = np.triu(rng.standard_normal((w, w)), -1)
     shifts = rng.standard_normal((nb, 2))
     seed = k0_off == 0
     p = np.zeros((nb, 3)) if seed else rng.standard_normal((nb, 3))
+    off, k0, hi = 3 * (nb - 1), lo + k0_off, w - 2
+    for r in (lo - k0 + off, hi - k0 + off):
+        if 1 <= r < w:
+            b[r, r - 1] = 0.0
+    for i in range(0 if seed else nb):
+        kb = off - 3 * i
+        if lo <= k0 - 3 * i <= hi - 2 and kb >= 1:
+            b[kb:kb + 3, kb - 1] = p[i]
     return b, p, shifts, seed, rng
+
+
+def _chase_contract(b, v, pp, k0, lo, hi, sl):
+    """B' = Vᵀ·B·V zero below the subdiagonal outside the three entries of
+    each bulge active at the last step, and those bulges' carries equal
+    to their columns B'[kb+1..kb+3, kb], within eps·W·max|B| (the slide
+    stays under 0.04 of that): the largest miss of either."""
+    w, nb = b.shape[-1], pp.shape[0]
+    off, t = 3 * (nb - 1), sl - 1
+    bp = v.T @ b @ v
+    junk = np.tril(bp, -2)
+    miss = 0.0
+    for i in range(nb):
+        k, kb = k0 + t - 3 * i, t + off - 3 * i
+        if not lo <= k <= hi - 2:
+            continue
+        for r, c in ((kb + 2, kb), (kb + 3, kb), (kb + 3, kb + 1)):
+            if r < w:
+                junk[r, c] = 0.0
+        want = [bp[kb + 1 + j, kb] if kb + 1 + j < w and (j < 2 or k + 3 < hi)
+                else 0.0 for j in range(3)]
+        miss = max(miss, np.abs(pp[i] - want).max())
+    assert max(np.abs(junk).max(), miss) <= EPS64 * w * np.abs(b).max()
+
+
+def _jax_chase(b, p, shifts, k0, lo, hi, sl, seed):
+    return (np.asarray(x) for x in jax_bulge_chase(
+        jnp.asarray(b), jnp.asarray(p), jnp.asarray(shifts), k0, lo, hi,
+        sl=sl, seed=seed, interpret=True))
 
 
 @pytest.mark.parametrize("w,nb,k0_off", [(32, 2, 0), (32, 2, 7), (24, 1, 0),
@@ -83,18 +126,17 @@ def test_bulge_chase_plain_matches_the_pallas_kernel(w, nb, k0_off):
     the Pallas kernel's own V_acc moves by up to 2e-5 when b is perturbed
     at 1e-15 (each bulge's reflector is built from entries its
     predecessors wrote). So beside the fixed 1e-12, the tolerance holds
-    100 times that measured sensitivity of the reference."""
+    100 times that measured sensitivity of the reference; the slide's
+    contract (``_chase_contract``) and V_acc's orthogonality hold however
+    the rounding went, and ``test_bulge_chase_short_slide_...`` holds the
+    same trains entry by entry before the amplification."""
     b, p, shifts, seed, rng = _chase_case(w, nb, k0_off)
     sl = w - 3 * nb
     lo, hi = 0, w - 2
-
-    def ref(bb):
-        return (np.asarray(x) for x in jax_bulge_chase(
-            jnp.asarray(bb), jnp.asarray(p), jnp.asarray(shifts),
-            lo + k0_off, lo, hi, sl=sl, seed=seed, interpret=True))
-
-    v_ref, p_ref = ref(b)
-    v_pert, p_pert = ref(b * (1 + 1e-15 * rng.standard_normal(b.shape)))
+    v_ref, p_ref = _jax_chase(b, p, shifts, lo + k0_off, lo, hi, sl, seed)
+    v_pert, p_pert = _jax_chase(
+        b * (1 + 1e-15 * rng.standard_normal(b.shape)), p, shifts,
+        lo + k0_off, lo, hi, sl, seed)
     sens_v = np.abs(v_pert - v_ref).max()
     sens_p = np.abs(p_pert - p_ref).max()
     v, pp = bc.bulge_chase_steps(_t(b), _t(p), _t(shifts), lo + k0_off, lo,
@@ -105,6 +147,24 @@ def test_bulge_chase_plain_matches_the_pallas_kernel(w, nb, k0_off):
         1e-12 * max(1.0, np.abs(p_ref).max()) + 100 * sens_p
     # V_acc is orthogonal however the rounding went
     assert np.abs(v.numpy().T @ v.numpy() - np.eye(w)).max() <= 1e-13
+    _chase_contract(b, v.numpy(), pp.numpy(), lo + k0_off, lo, hi, sl)
+
+
+@pytest.mark.parametrize("k0_off", [0, 80])
+def test_bulge_chase_short_slide_matches_the_pallas_kernel_entrywise(k0_off):
+    """The main path's train (W = 128, NB = 16), seeded and carried, over
+    its first 8 steps, before a long train amplifies rounding: V_acc and
+    the carries within 1e-12, with no allowance for sensitivity (the two
+    differ by a few eps here)."""
+    b, p, shifts, seed, _ = _chase_case(128, 16, k0_off)
+    lo, hi, sl = 0, 126, 8
+    v_ref, p_ref = _jax_chase(b, p, shifts, k0_off, lo, hi, sl, seed)
+    v, pp = bc.bulge_chase_steps(_t(b), _t(p), _t(shifts), k0_off, lo, hi,
+                                 sl, seed)
+    assert np.abs(v.numpy() - v_ref).max() <= 1e-12
+    assert np.abs(pp.numpy() - p_ref).max() <= \
+        1e-12 * max(1.0, np.abs(p_ref).max())
+    _chase_contract(b, v.numpy(), pp.numpy(), k0_off, lo, hi, sl)
 
 
 def test_bulge_chase_rejects_a_train_that_does_not_fit():
