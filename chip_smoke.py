@@ -89,9 +89,16 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # a solve's backward error against its reference's: two Householder solves
 # that round differently stay within 1.4x of each other on random systems
 BACKWARD_MULT = 8
-KERNELS = ("house_panel", "qr_gesv", "chol_leaf", "lu_panel", "lu_gesv",
-           "sytrd_panel", "jacobi_sweeps", "rrqr_kernel", "schur_small",
-           "bulge_chase_steps", "trevc_solve")
+KERNELS = ("house_panel", "qr_gesv", "house_stripe_t", "chol_leaf",
+           "lu_panel", "lu_gesv", "sytrd_panel", "jacobi_sweeps",
+           "rrqr_kernel", "schur_small", "bulge_chase_steps", "trevc_solve")
+# house_stripe_t's shapes: the headline's four panels, a batch of 128²,
+# B not a multiple of 8, and (one size per type) the global regime
+STRIPE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
+                 (32, 128, 128), (4, 128, 128), (2, 64, 17), (3, 96, 24))
+STRIPE_GLOBAL = {torch.float32: (2, 2048, 128), torch.float64: (2, 1024, 128)}
+# a qr_gesv system too large for a cluster of 8 in either type
+GESV_GLOBAL = (2, 768, 768, 2)
 # sytrd_panel against its plain version: SYTRD_C·eps·m·max|C| on the
 # trailing block, W, d and e, SYTRD_C·eps·m on V and taus (scale-free).
 # The two sum in different orders. At the main path's shapes (64 of 512 or
@@ -270,6 +277,10 @@ def phase1():
 
 
 def phase2_qr(rng, errs):
+    # the stripe kernels' inputs come from a generator of their own, so
+    # that the later phases' checks draw the same inputs from `rng` as
+    # before these were added
+    extra = np.random.default_rng(SEED + 1)
     for dtype in (torch.float32, torch.float64):
         for shape in ((32, 512, 128), (32, 384, 128), (32, 256, 128),
                       (32, 128, 128), (4, 128, 128)):
@@ -291,11 +302,71 @@ def phase2_qr(rng, errs):
                                                                      dtype)
             y = torch.from_numpy(rng.standard_normal((nb, n, k))).to(DEVICE,
                                                                       dtype)
-            err = solve_check(f"qr_gesv ({nb}, {n}, {n}) K={k} shift {shift} "
-                              f"{dtype}, kernel against plain", a, y,
-                              hs.qr_gesv(a, y), hs.qr_gesv_ref(a, y), dtype)
-            if dtype == torch.float32:
-                errs["qr_gesv"] = max(errs["qr_gesv"], err)
+            gesv_check(f"({nb}, {n}, {n}) K={k} shift {shift}", a, y, dtype,
+                       errs)
+        # config 1's shape in every cluster size that holds it in shared
+        # memory (the plan's pick among them), and the global regime
+        a = torch.from_numpy(extra.standard_normal((1, 256, 256))).to(
+            DEVICE, dtype)
+        y = torch.from_numpy(extra.standard_normal((1, 256, 4))).to(
+            DEVICE, dtype)
+        for c in hs.CLUSTER_SIZES:
+            if hs.smem_bytes(256, 260, 256, 4, c, True, dtype) \
+                    <= _build.SMEM_MAX:
+                gesv_check("config 1 (1, 256, 256) K=4", a, y, dtype, errs,
+                           c, True)
+        gesv_check("config 1 (1, 256, 256) K=4", a, y, dtype, errs, 4, False)
+        nb, n, _, k = GESV_GLOBAL
+        a = torch.from_numpy(extra.standard_normal((nb, n, n))).to(DEVICE,
+                                                                    dtype)
+        y = torch.from_numpy(extra.standard_normal((nb, n, k))).to(DEVICE,
+                                                                    dtype)
+        check(not hs.gesv_plan(a, y)[1], f"qr_gesv {GESV_GLOBAL[:3]} "
+              f"{dtype}: the plan takes the global regime")
+        gesv_check(f"{GESV_GLOBAL[:3]} K={k}", a, y, dtype, errs)
+        phase2_stripe(extra, errs, dtype)
+
+
+def gesv_check(what, a, y, dtype, errs, cluster=None, shared=None):
+    """qr_gesv's kernel against its plain version by solve_check, in the
+    plan's regime or the one given; prints which ran."""
+    plan = hs.gesv_plan(a, y)
+    c = cluster or plan[0]
+    sh = plan[1] if shared is None else shared
+    before = hs.launches
+    x = hs._qr_gesv_in(a, y, c, sh)
+    check(hs.launches == before + 1, f"qr_gesv {what} {dtype}: one launch")
+    err = solve_check(f"qr_gesv {what} {dtype} ({hs.regime(c, sh)}"
+                      f"{', the plan' if (c, sh) == plan else ''}), kernel "
+                      "against plain", a, y, x, hs.qr_gesv_ref(a, y), dtype)
+    if dtype == torch.float32:
+        errs["qr_gesv"] = max(errs["qr_gesv"], err)
+
+
+def phase2_stripe(rng, errs, dtype):
+    """house_stripe_t against its plain version on R, V and taus within
+    TOL·max|A|, at the headline's panels, (4, 128, 128), B not a multiple
+    of 8 and the global regime, a zero column in the first matrix (τ = 0);
+    at (32, 512, 128) also against house_panel's kernel as a drop-in."""
+    for shape in STRIPE_SHAPES + (STRIPE_GLOBAL[dtype],):
+        a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
+        a[0, :, shape[-1] // 2] = 0
+        c, sh = hs.stripe_plan(a)
+        what = f"house_stripe_t {shape} {dtype} ({hs.regime(c, sh)})"
+        before = hs.stripe_launches
+        got = hs.house_stripe_t(a)
+        check(hs.stripe_launches == before + 1, f"{what}: one launch")
+        tol = TOL[dtype] * maxabs(a)
+        err = max(maxabs(g - w) for g, w in zip(got, hs.house_stripe_t_ref(a)))
+        if dtype == torch.float32:
+            errs["house_stripe_t"] = max(errs["house_stripe_t"], err)
+        check(err <= tol and float(got[2][0, shape[-1] // 2]) == 0.0,
+              f"{what}: max |kernel - plain| over R, V, taus = {err:.3e} <= "
+              f"{tol:.3e}; τ = 0 on the zero column")
+        if shape == STRIPE_SHAPES[0]:
+            err = max(maxabs(g - w) for g, w in zip(got, hp.house_panel(a)))
+            check(err <= tol, f"{what}: max |house_stripe_t - house_panel| "
+                  f"(both kernels) over R, V, taus = {err:.3e} <= {tol:.3e}")
 
 
 def spd_garbage_above(rng, nb, n):
@@ -620,7 +691,7 @@ def square_solve_gate(a, x, y, what, where="bench.py:362"):
 
 
 def reset_counts() -> None:
-    hp.launches = hs.launches = cl.launches = 0
+    hp.launches = hs.launches = hs.stripe_launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
     sp.launches = js.launches = rk.launches = 0
     ss.launches = bc.launches = tv.launches = 0
@@ -632,7 +703,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     torch.cuda.synchronize()
     return {"house_panel": hp.launches, "qr_gesv": hs.launches,
-            "chol_leaf": cl.launches, "lu_panel": lp.launches["lu_panel"],
+            "house_stripe_t": hs.stripe_launches, "chol_leaf": cl.launches,
+            "lu_panel": lp.launches["lu_panel"],
             "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches,
             "jacobi_sweeps": js.launches, "rrqr_kernel": rk.launches,
             "schur_small": ss.launches, "bulge_chase_steps": bc.launches,
@@ -694,6 +766,23 @@ def phase3(gen):
     check_counts("qr_lstsq_fused (256, 256)", read_counts(), {"qr_gesv": 1},
                  totals)
     square_solve_gate(a1, x1, y1, "qr_lstsq_fused (256, 256), K=4")
+    say(f"qr_lstsq_fused (256, 256): qr_gesv ran in "
+        f"{hs.regime(*hs.gesv_plan(a1[None], y1[None]))}")
+
+    # house_stripe_t, the drop-in for house_panel, on the headline's first
+    # panel; held by reconstruction with the port's compact-WY T
+    panel = a[:, :, :128].contiguous()
+    reset_counts()
+    rp, vp, tp = hs.house_stripe_t(panel)
+    check_counts("house_stripe_t (32, 512, 128)", read_counts(),
+                 {"house_stripe_t": 1}, totals)
+    vm, t = qr_mod._form_t_batched(vp, tp)
+    recon = maxabs(rp - torch.matmul(vm, torch.matmul(
+        t, torch.matmul(vm.mT, rp))) - panel)
+    ptol = 1e-5 * maxabs(panel) * n ** 0.5
+    check(recon <= ptol, f"house_stripe_t (32, 512, 128) "
+          f"({hs.regime(*hs.stripe_plan(panel))}): max |(I - V·T·Vᵀ)·R - A| "
+          f"= {recon:.3e} <= {ptol:.3e}")
 
     cfg2 = config2_inputs(gen)
     reset_counts()
@@ -1648,6 +1737,67 @@ def eigen_walls(s, ab):
     return wall
 
 
+def gesv_breakdown(a3, y3) -> dict:
+    """qr_gesv at config 1 in float32 by cluster size: the whole launch
+    (the wrapper's scratch already built), the elimination alone and the
+    back substitution alone (on [R | Qᵀy] from the plain elimination,
+    checked against the plain solve), CUDA events each. The shared regime
+    leaves its scratch as it was, so one scratch serves every launch."""
+    n, k = a3.shape[-1], y3.shape[-1]
+    buf = torch.cat([a3, y3], -1)
+    hs._stripe_body_ref(buf, n)
+    done = hs._gesv_scratch(buf[:, :, :n].contiguous(),
+                            buf[:, :, n:].contiguous())
+    work = hs._gesv_scratch(a3, y3)
+    x = torch.empty_like(y3)
+    plan = hs.gesv_plan(a3, y3)
+    out = {"plan": hs.regime(*plan), "clusters": {}}
+    for c in hs.CLUSTER_SIZES:
+        if hs.smem_bytes(n, n + 4, n, k, c, True, a3.dtype) > _build.SMEM_MAX:
+            continue
+        hs._launch_gesv(done, x, k, c, True, 2)
+        solve_check(f"qr_gesv back substitution alone, cluster of {c}", a3, y3,
+                    x, hs.qr_gesv_ref(a3, y3), a3.dtype)
+        t = {"ms": cuda_ms(lambda: hs._launch_gesv(work, x, k, c, True), 20),
+             "elimination_ms":
+                 cuda_ms(lambda: hs._launch_gesv(work, x, k, c, True, 1), 20),
+             "back_substitution_ms":
+                 cuda_ms(lambda: hs._launch_gesv(done, x, k, c, True, 2), 20)}
+        out["clusters"][c] = t
+        say(f"qr_gesv (1, {n}, {n}) K={k} float32, shared memory, cluster of "
+            f"{c}: launch {t['ms']:.4f} ms, elimination alone "
+            f"{t['elimination_ms']:.4f} ms, back substitution alone "
+            f"{t['back_substitution_ms']:.4f} ms")
+    t = cuda_ms(lambda: hs._launch_gesv(work.clone(), x, k, 4, False), 10)
+    clone = cuda_ms(lambda: work.clone(), 10)
+    out["global_regime_cluster_4_ms"] = t - clone
+    say(f"qr_gesv (1, {n}, {n}) K={k} float32, global memory, cluster of 4: "
+        f"{t - clone:.4f} ms (a scratch copy of {clone:.4f} ms taken off)")
+    return out
+
+
+def stripe_breakdown(a) -> dict:
+    """house_stripe_t on the headline's (32, 512, 128) panel by cluster
+    size, and on each of its four panel shapes in the plan's regime."""
+    panel = a[:, :, :128].contiguous()
+    out = {"plan": hs.regime(*hs.stripe_plan(panel)), "clusters": {}}
+    for c in hs.CLUSTER_SIZES:
+        if hs.smem_bytes(512, 128, 128, 0, c, True, panel.dtype) \
+                > _build.SMEM_MAX:
+            continue
+        out["clusters"][c] = cuda_ms(
+            lambda: hs._house_stripe_t_in(panel, c, True), 10)
+        say(f"house_stripe_t (32, 512, 128) float32, shared memory, cluster "
+            f"of {c}: {out['clusters'][c]:.4f} ms")
+    out["panels_ms"] = [cuda_ms(lambda p=a[:, k:, k:k + 128].contiguous():
+                                hs.house_stripe_t(p), 5)
+                        for k in range(0, 512, 128)]
+    say("house_stripe_t on the headline's panels (32, 512|384|256|128, 128) "
+        "ms: " + ", ".join(f"{t:.4f}" for t in out["panels_ms"])
+        + f"; sum {sum(out['panels_ms']):.4f}")
+    return out
+
+
 def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     a, _ = batch
     a1, y1 = cfg1
@@ -1694,11 +1844,18 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
              lambda: hp.house_panel(panel), lambda: hp.house_panel_ref(panel),
              lambda: torch.geqrf(panel), hp_flops, hp_bytes,
              list(panel.shape)),
-            ("qr_gesv", "nd4js_tpu_torch/csrc/qr_gesv.cu",
+            ("qr_gesv", "nd4js_tpu_torch/csrc/house_stripe.cu",
              "nd4js_tpu/ops/house_stripe.py:206",
              lambda: hs.qr_gesv(a3, y3), lambda: hs.qr_gesv_ref(a3, y3),
              lambda: torch.linalg.solve(a3, y3), gs_flops, gs_bytes,
              list(a3.shape) + [k]),
+            # the drop-in for house_panel: the same work, the same bound
+            ("house_stripe_t", "nd4js_tpu_torch/csrc/house_stripe.cu",
+             "nd4js_tpu/ops/house_stripe.py:273",
+             lambda: hs.house_stripe_t(panel),
+             lambda: hs.house_stripe_t_ref(panel),
+             lambda: torch.geqrf(panel), hp_flops, hp_bytes,
+             list(panel.shape)),
             ("chol_leaf", "nd4js_tpu_torch/csrc/chol_leaf.cu",
              "nd4js_tpu/ops/chol_leaf.py:104",
              lambda: cl.chol_leaf(leaf, True),
@@ -1744,12 +1901,14 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
             f"{row['plain_ms']:.4f} ms, library {lib_txt}, "
             f"bound {t_bound:.5f} ms ({by})")
         rows.append(row)
+    by_name = {row["name"]: row for row in rows}
+    by_name["qr_gesv"].update(gesv_breakdown(a3, y3))
+    by_name["house_stripe_t"].update(stripe_breakdown(a))
     # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
     # config 3's Rᵀ (one launch a round), rrqr_kernel at the 512² batch
     a3, _ = svd_in["cfg3"]
     wl = qr_mod._qr_house_flat(a3, True)[1].mT.contiguous()
     vl = torch.eye(512, device=DEVICE).repeat(wl.shape[0], 1, 1)
-    by_name = {row["name"]: row for row in rows}
     for name, shape, cost, kern, plain, iters in (
             ("sytrd_panel", list(cg.shape) + [64], sytrd_panel_cost(cg, 64),
              lambda: sp.sytrd_panel(cg, 64),
@@ -1775,6 +1934,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
         return la.qr_lstsq(q, r, y)
 
     wall = {"qr_decomp + qr_lstsq": wall_ms(headline),
+            "config 1 qr_lstsq_fused (256, 256)":
+                wall_ms(lambda: la.qr_lstsq_fused(a1, y1)),
             "config 2": wall_ms(lambda: config2(spd2, y2)),
             "lu_decomp": wall_ms(lambda: la.lu_decomp(a)),
             "cholesky_decomp": wall_ms(lambda: la.cholesky_decomp(spd512)),

@@ -11,9 +11,11 @@ kernel's plain PyTorch version runs in its place.
 Ported so far: batched Householder QR and QR least squares
 (``la.qr_decomp``, ``la.qr_decomp_full``, ``la.qr_lstsq``,
 ``la.qr_solve``, ``la.qr_lstsq_fused``) with the kernels ``house_panel``
-and ``qr_gesv``; LU, Cholesky and determinants with ``chol_leaf``,
-``lu_panel`` and ``lu_gesv``; symmetric eigen (``la.eigh``,
-``la.eigh_jacobi``, ``la.eigh_tridiag_dc``, ``la.tridiag_eigh_dc``) with
+and ``qr_gesv``, and ``ops.house_stripe.house_stripe_t``, the stripe-WY
+panel that ``qr_gesv`` shares its elimination with; LU, Cholesky and
+determinants with ``chol_leaf``, ``lu_panel`` and ``lu_gesv``; symmetric
+eigen (``la.eigh``, ``la.eigh_jacobi``, ``la.eigh_tridiag_dc``,
+``la.tridiag_eigh_dc``) with
 ``sytrd_panel``; the SVD (``la.svd_decomp``, ``la.svd_gram``,
 ``la.svd_jac_1sided``, ``la.svd_lstsq``, ``la.svd_solve``, ``la.rank``,
 ``la.lstsq``, ``la.eigh_via_svd``) with ``jacobi_sweeps``; and the

@@ -16,8 +16,9 @@
 //
 // Design: the simple first version. One thread block per matrix of the batch,
 // columns mapped to threads fastest so that every row access is contiguous.
-// A faster kernel would keep a stripe of columns in registers or shared memory
-// and apply it to the rest as a compact-WY block (the TPU's house_stripe).
+// house_stripe.cu computes the same panel faster: stripes of 8 columns in the
+// shared memory of a thread-block cluster, each applied to the rest as a
+// compact-WY block (the port of the TPU's house_stripe_t).
 #include <cuda_runtime.h>
 
 #include "common.cuh"

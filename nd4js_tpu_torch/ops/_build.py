@@ -45,8 +45,11 @@ _SIGNATURES = {
     "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
     "nd4js_house_panel_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "nd4js_house_panel_f64": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "nd4js_qr_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
-    "nd4js_qr_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_qr_gesv_f32": (_I, [_P, _P] + [_I] * 6 + [_P]),
+    "nd4js_qr_gesv_f64": (_I, [_P, _P] + [_I] * 6 + [_P]),
+    "nd4js_house_stripe_t_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    "nd4js_house_stripe_t_f64": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    "nd4js_house_stripe_smem": (ctypes.c_size_t, [_I] * 7),
     "nd4js_lu_panel_f32": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_panel_f64": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
@@ -168,6 +171,9 @@ def launch(fn_name: str, device, *args):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(*ptrs, stream)
+    if rc == -2:
+        raise RuntimeError(f"{fn_name}: no part of the card can hold one "
+                           "cluster of the launch")
     if rc != 0:
         # 1 (cudaErrorInvalidValue) is also what a block asking for more
         # than Hopper's 227 KB of shared memory gets

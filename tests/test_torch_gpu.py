@@ -17,7 +17,12 @@ TOL·max|A| and its rank exactly equal (the kernel and the plain version
 round each product and difference alike); ``sytrd_panel`` within
 SYTRD_C·eps·m·max|C| (reason below), its trailing block exactly
 symmetric, and backward stable (``panel_backward_error``);
-``jacobi_sweeps``' W within 64·eps·n·max|W| and V and off within 64·eps·n
+``house_stripe_t`` within the same TOL·max|A| of its plain version
+and of ``house_panel``'s kernel, and in every cluster size of both
+regimes, and on transposed views; the cluster plan's rule, whose
+byte counts come from the kernel library; ``qr_gesv`` in each regime (clusters of 1 to 8 blocks in shared
+memory, global memory) against its plain version by x and by backward
+error. ``jacobi_sweeps``' W within 64·eps·n·max|W| and V and off within 64·eps·n
 on a near-converged W (the two sum in different orders over n − 1 rounds),
 and consistent on a random one, in both of its regimes (a sweep in shared
 memory, or one launch a round); ``rrqr_kernel``'s pivots exactly equal (in
@@ -40,6 +45,7 @@ import torch
 
 from nd4js_tpu_torch import la
 from nd4js_tpu_torch.la import qr
+from nd4js_tpu_torch.ops import _build
 from nd4js_tpu_torch.ops import chol_leaf as cl
 from nd4js_tpu_torch.ops import house_panel as hp
 from nd4js_tpu_torch.ops import house_stripe as hs
@@ -157,6 +163,157 @@ def test_qr_slice_on_the_card_matches_the_cpu(cuda, dtype):
             tol * float(xc.abs().max()) * np.linalg.cond(aa).max()
         assert_backward_stable(torch.from_numpy(aa).to(dtype),
                                torch.from_numpy(yy).to(dtype), x, xc, dtype)
+
+
+# (Nb, M, B) for house_stripe_t: a B not a multiple of 8, a wide panel,
+# 128² and the headline's 512 rows in shared memory, and one global-regime
+# shape per type
+STRIPE_SHAPES = [(3, 48, 16), (2, 64, 17), (3, 96, 24), (2, 6, 12),
+                 (4, 128, 128), (2, 512, 128)]
+STRIPE_GLOBAL = {torch.float32: (1, 2048, 128), torch.float64: (1, 1024, 128)}
+
+
+@pytest.mark.parametrize("shape", STRIPE_SHAPES + ["global"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_house_stripe_t_kernel_matches_plain_version(cuda, shape, dtype):
+    """R, V and taus within TOL·max|A| of the plain version, with a zero
+    column (τ = 0), in the plan's regime; and against house_panel's kernel
+    (a drop-in) within the same tolerance."""
+    shape = STRIPE_GLOBAL[dtype] if shape == "global" else shape
+    a = _on(cuda, np.random.default_rng(34).standard_normal(shape), dtype)
+    a[0, :, shape[-1] // 2] = 0
+    c, shared = hs.stripe_plan(a)
+    assert shared == (shape != STRIPE_GLOBAL[dtype])
+    before = hs.stripe_launches
+    got = hs.house_stripe_t(a)
+    torch.cuda.synchronize()
+    assert hs.stripe_launches == before + 1
+    tol = TOL[dtype] * float(a.abs().max())
+    for g, w, p in zip(got, hs.house_stripe_t_ref(a), hp.house_panel(a)):
+        assert g.device.type == "cuda" and g.shape == w.shape
+        assert float((g - w).abs().max()) <= tol
+        assert float((g - p).abs().max()) <= tol
+    assert float(got[2][0, shape[-1] // 2]) == 0.0
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_house_stripe_t_kernel_in_every_cluster_size(cuda, cluster, shared,
+                                                      dtype):
+    """Every cluster size in both regimes on (4, 128, 128): 16 stripes,
+    so a block of 8 still owns two."""
+    a = _on(cuda, np.random.default_rng(35).standard_normal((4, 128, 128)),
+            dtype)
+    got = hs._house_stripe_t_in(a, cluster, shared)
+    tol = TOL[dtype] * float(a.abs().max())
+    for g, w in zip(got, hs.house_stripe_t_ref(a)):
+        assert float((g - w).abs().max()) <= tol
+
+
+# (Nb, N, K, cluster, shared) of qr_gesv: config 1 in each cluster size and
+# in the global regime, a system that fits one block, and the plan's choice
+# (None) for N not a multiple of 8 with K > 8 and for the 768² global regime
+GESV_REGIMES = [(2, 128, 1, 1, True), (1, 256, 4, 2, True),
+                (1, 256, 4, 4, True), (1, 256, 4, 8, True),
+                (1, 256, 4, 4, False), (3, 40, 2, 1, False),
+                (2, 21, 11, None, None), (2, 768, 2, None, None)]
+
+
+@pytest.mark.parametrize("nb,n,k,cluster,shared", GESV_REGIMES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_gesv_kernel_in_each_regime(cuda, nb, n, k, cluster, shared,
+                                       dtype):
+    """x within the forward-error bound of the plain version and backward
+    stable. A cluster too small for the system's shared memory (config 1
+    in float64 on 2 blocks) must raise instead."""
+    rng = np.random.default_rng(36 + n)
+    a64 = rng.standard_normal((nb, n, n))
+    a, y = _on(cuda, a64, dtype), _on(cuda, rng.standard_normal((nb, n, k)),
+                                      dtype)
+    plan = hs.gesv_plan(a, y)
+    c = cluster or plan[0]
+    sh = plan[1] if shared is None else shared
+    n8 = -(-n // 8) * 8
+    if hs.smem_bytes(n, n8 + k, n, k, c, sh, dtype) > _build.SMEM_MAX:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hs._qr_gesv_in(a, y, c, sh)
+        return
+    if n == 768:
+        assert not sh
+    x = hs._qr_gesv_in(a, y, c, sh)
+    x_ref = hs.qr_gesv_ref(a, y)
+    err = (x - x_ref).abs().amax(dim=(-2, -1)).double().cpu().numpy()
+    xmax = x_ref.abs().amax(dim=(-2, -1)).double().cpu().numpy()
+    tol = np.maximum(TOL[dtype] * np.abs(a64).max(axis=(-2, -1)),
+                     n * torch.finfo(dtype).eps * np.linalg.cond(a64) * xmax)
+    assert (err <= tol).all()
+    assert_backward_stable(a, y, x, x_ref, dtype)
+
+
+# The cluster plan reads each launch's shared memory from the kernel
+# library (smem_plan of csrc/house_stripe.cuh), so it is checked here.
+@pytest.mark.parametrize("what,args,want", [
+    # config 1: 33 groups, 266 KB in float32 — a cluster of 2 would hold it;
+    # one system leaves the card free, so the rule takes the largest, 8
+    ("config 1 f32", (1, 256, 264, 256, 4, torch.float32), (8, True)),
+    ("config 1 f64", (1, 256, 264, 256, 4, torch.float64), (8, True)),
+    # house_stripe_t's (32, 512, 128): 256 KB needs 2 blocks in float32, 4
+    # in float64; 512-thread blocks allow 32·2 of them at 256 threads an SM
+    ("panel 512 f32", (32, 512, 128, 128, 0, torch.float32), (2, True)),
+    ("panel 512 f64", (32, 512, 128, 128, 0, torch.float64), (4, True)),
+    # 128² with one right-hand side fits one block; 128-thread blocks
+    ("(64, 128) K=1 f32", (64, 128, 129, 128, 1, torch.float32), (4, True)),
+    ("(300, 128) K=1 f32", (300, 128, 129, 128, 1, torch.float32),
+     (1, True)),
+    # a panel of one stripe runs on one block whatever the batch
+    ("one stripe", (2, 64, 8, 8, 0, torch.float32), (1, True)),
+    # 768² does not fit 8 blocks: the global regime
+    ("768 f32", (2, 768, 776, 768, 2, torch.float32), (8, False)),
+])
+def test_plan_states_its_rule(cuda, what, args, want):
+    assert hs.plan(*args) == want, what
+
+
+def test_plan_shared_regime_fits_and_global_regime_is_a_last_resort(
+        cuda):
+    """Whatever the plan picks fits 227 KB a block; the shared regime is
+    taken whenever some cluster of at most 8 holds the columns; beyond
+    what one block can stage, plan raises."""
+    for m in (8, 64, 200, 256, 512, 700, 1000):
+        for dtype in (torch.float32, torch.float64):
+            for ncols, nh, kt in ((m + 8, m, 3), (min(m, 128), min(m, 128),
+                                                    0)):
+                c, shared = hs.plan(1, m, ncols, nh, kt, dtype)
+                assert hs.smem_bytes(m, ncols, nh, kt, c, shared, dtype) \
+                    <= _build.SMEM_MAX
+                fits8 = hs.smem_bytes(m, ncols, nh, kt, 8, True, dtype) \
+                    <= _build.SMEM_MAX
+                assert shared == fits8
+    with pytest.raises(ValueError, match="global regime"):
+        hs.plan(1, 4000, 4008, 4000, 1, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_house_stripe_kernels_take_transposed_views(cuda, dtype):
+    """A transposed (non-contiguous) panel or system gives contiguous
+    outputs equal to those of its contiguous copy, within TOL of the
+    plain version."""
+    rng = np.random.default_rng(37)
+    panel = _on(cuda, rng.standard_normal((3, 64, 96)), dtype).mT
+    assert not panel.is_contiguous()
+    got = hs.house_stripe_t(panel)
+    tol = TOL[dtype] * float(panel.abs().max())
+    for g, c, w in zip(got, hs.house_stripe_t(panel.contiguous()),
+                       hs.house_stripe_t_ref(panel)):
+        assert g.is_contiguous() and torch.equal(g, c)
+        assert float((g - w).abs().max()) <= tol
+    a = _on(cuda, rng.standard_normal((2, 40, 40)), dtype).mT
+    y = _on(cuda, rng.standard_normal((2, 3, 40)), dtype).mT
+    x = hs.qr_gesv(a, y)
+    assert x.is_contiguous()
+    assert torch.equal(x, hs.qr_gesv(a.contiguous(), y.contiguous()))
+    assert_backward_stable(a, y, x, hs.qr_gesv_ref(a, y), dtype)
 
 
 def _spd(rng, shape):
