@@ -44,16 +44,18 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
                    T* __restrict__ p_out, int W, int NB, int SL, int k0, int lo, int hi,
                    int seed, int v_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = W | 1;              // odd: conflict-free column access
   T* b = reinterpret_cast<T*>(smem_raw);
-  T* P = b + (size_t)W * W;          // NB × 3 carries
+  T* P = b + (size_t)W * ld;         // NB × 3 carries
   T* rf = P + 3 * NB;                // NB × 3: v1, v2, tau of this step
   T* v = v_in_smem ? rf + 3 * NB : v_out;
+  const int ldv = v_in_smem ? ld : W;
 
   const int tid = threadIdx.x;
   const int OFF = 3 * (NB - 1);
   for (int idx = tid; idx < W * W; idx += blockDim.x) {
-    b[idx] = b_in[idx];
-    v[idx] = (idx / W == idx % W) ? T(1) : T(0);
+    b[(idx / W) * ld + idx % W] = b_in[idx];
+    v[(idx / W) * ldv + idx % W] = (idx / W == idx % W) ? T(1) : T(0);
   }
   for (int idx = tid; idx < 3 * NB; idx += blockDim.x) P[idx] = p_in[idx];
   __syncthreads();
@@ -67,9 +69,9 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       T p0 = P[3 * i], p1 = P[3 * i + 1], p2 = P[3 * i + 2];
       if (seed && k == lo) {
         const T tr = shifts[2 * i], det = shifts[2 * i + 1];
-        const T b00 = b[kb * W + kb], b01 = b[kb * W + kb + 1];
-        const T b10 = b[(kb + 1) * W + kb], b11 = b[(kb + 1) * W + kb + 1];
-        const T b21 = b[(kb + 2) * W + kb + 1];
+        const T b00 = b[kb * ld + kb], b01 = b[kb * ld + kb + 1];
+        const T b10 = b[(kb + 1) * ld + kb], b11 = b[(kb + 1) * ld + kb + 1];
+        const T b21 = b[(kb + 2) * ld + kb + 1];
         p0 = b00 * b00 + b01 * b10 - tr * b00 + det;
         p1 = b10 * (b00 + b11 - tr);
         p2 = b10 * b21;
@@ -98,11 +100,11 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       if (tau == T(0)) continue;
       const T v1 = rf[3 * i], v2 = rf[3 * i + 1];
       const int kb = t + OFF - 3 * i;
-      T* r0 = b + kb * W + c;
-      const T w = tau * (r0[0] + v1 * r0[W] + v2 * r0[2 * W]);
+      T* r0 = b + kb * ld + c;
+      const T w = tau * (r0[0] + v1 * r0[ld] + v2 * r0[2 * ld]);
       r0[0] -= w;
-      r0[W] -= v1 * w;
-      r0[2 * W] -= v2 * w;
+      r0[ld] -= v1 * w;
+      r0[2 * ld] -= v2 * w;
     }
     __syncthreads();
     // ---- all NB column updates: B ← B·(I − τ·v·vᵀ), V_acc ← V_acc·(…)
@@ -112,12 +114,12 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       if (tau == T(0)) continue;
       const T v1 = rf[3 * i], v2 = rf[3 * i + 1];
       const int kb = t + OFF - 3 * i;
-      T* c0 = b + r * W + kb;
+      T* c0 = b + r * ld + kb;
       const T w = tau * (c0[0] + v1 * c0[1] + v2 * c0[2]);
       c0[0] -= w;
       c0[1] -= v1 * w;
       c0[2] -= v2 * w;
-      T* q0 = v + r * W + kb;
+      T* q0 = v + r * ldv + kb;
       const T wq = tau * (q0[0] + v1 * q0[1] + v2 * q0[2]);
       q0[0] -= wq;
       q0[1] -= v1 * wq;
@@ -129,9 +131,9 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       const int k = k0 + t - 3 * i;
       const int kb = t + OFF - 3 * i;
       if (k >= lo && k <= hi - 2) {
-        P[3 * i] = b[(kb + 1) * W + kb];
-        P[3 * i + 1] = b[(kb + 2) * W + kb];
-        P[3 * i + 2] = k + 3 < hi ? b[(kb + 3) * W + kb] : T(0);
+        P[3 * i] = b[(kb + 1) * ld + kb];
+        P[3 * i + 1] = b[(kb + 2) * ld + kb];
+        P[3 * i + 2] = k + 3 < hi ? b[(kb + 3) * ld + kb] : T(0);
       }
     }
     // the same thread reads P[i] at the next step: no barrier needed here,
@@ -139,13 +141,13 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
   }
   __syncthreads();
   if (v_in_smem)
-    for (int idx = tid; idx < W * W; idx += blockDim.x) v_out[idx] = v[idx];
+    for (int idx = tid; idx < W * W; idx += blockDim.x) v_out[idx] = v[(idx / W) * ld + idx % W];
   for (int idx = tid; idx < 3 * NB; idx += blockDim.x) p_out[idx] = P[idx];
 }
 
 template <typename T>
 size_t smem_bytes(int W, int NB, bool v_in_smem) {
-  return sizeof(T) * ((size_t)W * W * (v_in_smem ? 2 : 1) + 6 * (size_t)NB);
+  return sizeof(T) * ((size_t)W * (W | 1) * (v_in_smem ? 2 : 1) + 6 * (size_t)NB);
 }
 
 template <typename T>

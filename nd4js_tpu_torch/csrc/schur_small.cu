@@ -90,21 +90,21 @@ __device__ __forceinline__ void rot2(T g1, T g2, T* cs, T* sn) {
 // T ← Gᵀ·T·G and Q ← Q·G for G = I but [[cs, −sn], [sn, cs]] at (k, k+1):
 // rows first, then columns, as (Gᵀ·T)·G. Contains __syncthreads().
 template <typename T>
-__device__ void apply_rot2(T* t, T* q, int W, int k, T cs, T sn) {
+__device__ void apply_rot2(T* t, T* q, int W, int ld, int ldq, int k, T cs, T sn) {
   const int tid = threadIdx.x;
   for (int c = tid; c < W; c += blockDim.x) {
-    const T r0 = t[k * W + c], r1 = t[(k + 1) * W + c];
-    t[k * W + c] = cs * r0 + sn * r1;
-    t[(k + 1) * W + c] = -sn * r0 + cs * r1;
+    const T r0 = t[k * ld + c], r1 = t[(k + 1) * ld + c];
+    t[k * ld + c] = cs * r0 + sn * r1;
+    t[(k + 1) * ld + c] = -sn * r0 + cs * r1;
   }
   __syncthreads();
   for (int r = tid; r < W; r += blockDim.x) {
-    const T c0 = t[r * W + k], c1 = t[r * W + k + 1];
-    t[r * W + k] = cs * c0 + sn * c1;
-    t[r * W + k + 1] = -sn * c0 + cs * c1;
-    const T d0 = q[r * W + k], d1 = q[r * W + k + 1];
-    q[r * W + k] = cs * d0 + sn * d1;
-    q[r * W + k + 1] = -sn * d0 + cs * d1;
+    const T c0 = t[r * ld + k], c1 = t[r * ld + k + 1];
+    t[r * ld + k] = cs * c0 + sn * c1;
+    t[r * ld + k + 1] = -sn * c0 + cs * c1;
+    const T d0 = q[r * ldq + k], d1 = q[r * ldq + k + 1];
+    q[r * ldq + k] = cs * d0 + sn * d1;
+    q[r * ldq + k + 1] = -sn * d0 + cs * d1;
   }
   __syncthreads();
 }
@@ -115,19 +115,21 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
                    T* __restrict__ lk_out, int* __restrict__ it_out, int W, int max_iter,
                    int q_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = W | 1;              // odd: conflict-free column access
   T* t = reinterpret_cast<T*>(smem_raw);
-  T* lk = t + (size_t)W * W;         // W: 0/1 per subdiagonal position
+  T* lk = t + (size_t)W * ld;        // W: 0/1 per subdiagonal position
   T* red = lk + W;                   // 32: block_sum scratch
   T* pbuf = red + 32;                // 2 × 3: the next bulge column, by parity
   T* q = q_in_smem ? pbuf + 8 : q_out + (size_t)blockIdx.x * W * W;
+  const int ldq = q_in_smem ? ld : W;
   __shared__ int ctl[2];             // lo, hi
 
   const int tid = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * W * W;
   const T eps = eps_of<T>();
   for (int idx = tid; idx < W * W; idx += blockDim.x) {
-    t[idx] = a[off + idx];
-    q[idx] = (idx / W == idx % W) ? T(1) : T(0);
+    t[(idx / W) * ld + idx % W] = a[off + idx];
+    q[(idx / W) * ldq + idx % W] = (idx / W == idx % W) ? T(1) : T(0);
   }
   for (int j = tid; j < W; j += blockDim.x) lk[j] = T(0);
   __syncthreads();
@@ -136,30 +138,33 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
   while (hi_prev != 0 && it < max_iter) {
     // ---- deflation scan, with the norm floor eps·‖T‖_F
     T s = T(0);
-    for (int idx = tid; idx < W * W; idx += blockDim.x) s += t[idx] * t[idx];
+    for (int idx = tid; idx < W * W; idx += blockDim.x) {
+      const T x = t[(idx / W) * ld + idx % W];
+      s += x * x;
+    }
     const T floor = eps * sqrt(nd4js::block_sum(s, red));
     for (int j = tid; j < W - 1; j += blockDim.x) {
-      const T sub = t[(j + 1) * W + j];
-      const T dsum = fabs(t[j * W + j]) + fabs(t[(j + 1) * W + j + 1]);
+      const T sub = t[(j + 1) * ld + j];
+      const T dsum = fabs(t[j * ld + j]) + fabs(t[(j + 1) * ld + j + 1]);
       const T thr = T(16) * eps * dsum;
-      if (fabs(sub) <= (thr > floor ? thr : floor)) t[(j + 1) * W + j] = T(0);
+      if (fabs(sub) <= (thr > floor ? thr : floor)) t[(j + 1) * ld + j] = T(0);
     }
     __syncthreads();
     // ---- re-zero next to locked pairs
     for (int j = tid; j < W - 1; j += blockDim.x) {
       const bool me = lk[j] > T(0.5);
       const bool nbr = (j > 0 && lk[j - 1] > T(0.5)) || lk[j + 1] > T(0.5);
-      if (nbr && !me) t[(j + 1) * W + j] = T(0);
+      if (nbr && !me) t[(j + 1) * ld + j] = T(0);
     }
     __syncthreads();
     // ---- active window [lo, hi)
     if (tid == 0) {
       int hi = 0;
       for (int j = 0; j < W - 1; ++j)
-        if (lk[j] <= T(0.5) && t[(j + 1) * W + j] != T(0)) hi = j + 2;
+        if (lk[j] <= T(0.5) && t[(j + 1) * ld + j] != T(0)) hi = j + 2;
       int lo = 0;
       for (int j = 0; j < hi - 1; ++j)
-        if (!(lk[j] <= T(0.5) && t[(j + 1) * W + j] != T(0))) lo = j + 1;
+        if (!(lk[j] <= T(0.5) && t[(j + 1) * ld + j] != T(0))) lo = j + 1;
       ctl[0] = lo;
       ctl[1] = hi;
     }
@@ -167,8 +172,8 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
     const int lo = ctl[0], hi = ctl[1];
     const bool size2 = hi - lo == 2;
     if (hi > 0 && size2) {
-      const T aa = t[lo * W + lo], bb = t[lo * W + lo + 1];
-      const T cc = t[(lo + 1) * W + lo], dd = t[(lo + 1) * W + lo + 1];
+      const T aa = t[lo * ld + lo], bb = t[lo * ld + lo + 1];
+      const T cc = t[(lo + 1) * ld + lo], dd = t[(lo + 1) * ld + lo + 1];
       const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
       // every thread has read the block before apply_rot2 rewrites it (a
       // late reader would build another rotation, or skip its barriers)
@@ -184,26 +189,26 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
         const bool big_b = fabs(bb) >= fabs(cc);
         T cs, sn;
         rot2(big_b ? bb : lam_m_dd, big_b ? lam_m_aa : cc, &cs, &sn);
-        apply_rot2(t, q, W, lo, cs, sn);
-        if (tid == 0) t[(lo + 1) * W + lo] = T(0);
+        apply_rot2(t, q, W, ld, ldq, lo, cs, sn);
+        if (tid == 0) t[(lo + 1) * ld + lo] = T(0);
       } else if (tid == 0) {
         lk[lo] = T(1);
       }
     } else if (hi > 0) {
       const int m = hi - 2;
-      const T h_mm = t[m * W + m], h_nn = t[(hi - 1) * W + hi - 1];
-      const T h_mn = t[m * W + hi - 1], h_nm = t[(hi - 1) * W + m];
+      const T h_mm = t[m * ld + m], h_nn = t[(hi - 1) * ld + hi - 1];
+      const T h_mn = t[m * ld + hi - 1], h_nm = t[(hi - 1) * ld + m];
       T tr = h_mm + h_nn;
       T det = h_mm * h_nn - h_mn * h_nm;
       if (stuck % 10 == 9) {   // exceptional shift (dlahqr)
-        const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * W + m - 1]) : T(0));
+        const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * ld + m - 1]) : T(0));
         const T lam = h_nn + T(0.75) * s_mag;
         tr = T(2) * lam;
         det = lam * lam;
       }
-      const T h00 = t[lo * W + lo], h01 = t[lo * W + lo + 1];
-      const T h10 = t[(lo + 1) * W + lo], h11 = t[(lo + 1) * W + lo + 1];
-      const T h21 = t[(lo + 2) * W + lo + 1];
+      const T h00 = t[lo * ld + lo], h01 = t[lo * ld + lo + 1];
+      const T h10 = t[(lo + 1) * ld + lo], h11 = t[(lo + 1) * ld + lo + 1];
+      const T h21 = t[(lo + 2) * ld + lo + 1];
       T p0 = h00 * h00 + h01 * h10 - tr * h00 + det;
       T p1 = h10 * (h00 + h11 - tr);
       T p2 = h10 * h21;
@@ -212,30 +217,30 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
         const House3<T> h = house3(p0, p1, p2);
         if (h.tau != T(0)) {
           for (int c = tid; c < W; c += blockDim.x) {
-            const T w = h.tau * (t[k * W + c] + h.v1 * t[(k + 1) * W + c] +
-                                 h.v2 * t[(k + 2) * W + c]);
-            t[k * W + c] -= w;
-            t[(k + 1) * W + c] -= h.v1 * w;
-            t[(k + 2) * W + c] -= h.v2 * w;
+            const T w = h.tau * (t[k * ld + c] + h.v1 * t[(k + 1) * ld + c] +
+                                 h.v2 * t[(k + 2) * ld + c]);
+            t[k * ld + c] -= w;
+            t[(k + 1) * ld + c] -= h.v1 * w;
+            t[(k + 2) * ld + c] -= h.v2 * w;
           }
         }
         __syncthreads();
         T* nxt = pbuf + 3 * ((k - lo) & 1);
         for (int r = tid; r < W; r += blockDim.x) {
           if (h.tau != T(0)) {
-            T* tr_ = t + r * W + k;
+            T* tr_ = t + r * ld + k;
             const T w = h.tau * (tr_[0] + h.v1 * tr_[1] + h.v2 * tr_[2]);
             tr_[0] -= w;
             tr_[1] -= h.v1 * w;
             tr_[2] -= h.v2 * w;
-            T* qr = q + r * W + k;
+            T* qr = q + r * ldq + k;
             const T wq = h.tau * (qr[0] + h.v1 * qr[1] + h.v2 * qr[2]);
             qr[0] -= wq;
             qr[1] -= h.v1 * wq;
             qr[2] -= h.v2 * wq;
           }
           // the next bulge column T[k+1..k+3, k], from the rows' owners
-          if (r >= k + 1 && r <= k + 3) nxt[r - k - 1] = t[r * W + k];
+          if (r >= k + 1 && r <= k + 3) nxt[r - k - 1] = t[r * ld + k];
         }
         __syncthreads();
         p0 = nxt[0];
@@ -244,7 +249,7 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
       }
       T cs, sn;
       rot2(p0, p1, &cs, &sn);
-      apply_rot2(t, q, W, hi - 2, cs, sn);
+      apply_rot2(t, q, W, ld, ldq, hi - 2, cs, sn);
     }
     if (hi > 0) stuck = size2 ? 0 : stuck + 1;
     if (hi != hi_prev) stuck = 0;
@@ -254,8 +259,8 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
   }
 
   for (int idx = tid; idx < W * W; idx += blockDim.x) {
-    t_out[off + idx] = t[idx];
-    if (q_in_smem) q_out[off + idx] = q[idx];
+    t_out[off + idx] = t[(idx / W) * ld + idx % W];
+    if (q_in_smem) q_out[off + idx] = q[(idx / W) * ld + idx % W];
   }
   for (int j = tid; j < W; j += blockDim.x) lk_out[(size_t)blockIdx.x * W + j] = lk[j];
   if (tid == 0) it_out[blockIdx.x] = it;
@@ -263,7 +268,7 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
 
 template <typename T>
 size_t smem_bytes(int W, bool q_in_smem) {
-  return sizeof(T) * ((size_t)W * W * (q_in_smem ? 2 : 1) + W + 32 + 8);
+  return sizeof(T) * ((size_t)W * (W | 1) * (q_in_smem ? 2 : 1) + W + 32 + 8);
 }
 
 template <typename T>
