@@ -23,13 +23,25 @@
 //
 // Design. The TPU kernel extracts every scalar as a masked reduction over
 // the whole block and applies each 3-element reflector as a full-block
-// update, because Mosaic cannot index lanes: O(W²) work a step. Here a
-// reflector touches what it changes: three rows (W entries each) and three
-// columns of T and of Q, one thread per row or column, with two barriers a
-// step. Every thread rebuilds the reflector itself from three values that
-// the threads owning those rows wrote to a small double-buffered array, so
-// no thread waits on a scalar broadcast. The control scalars (lo, hi) come
-// from one thread's scan of the subdiagonal, ‖T‖_F from a block reduction.
+// update, because Mosaic cannot index lanes: O(W²) work a step. Here the
+// block has two groups of warps, each W threads rounded up to whole warps
+// (ops/schur_small.py::plan):
+//   * the chain, thread j for column j and row j of T: a reflector touches
+//     three rows (thread j updates their column j) and three columns (thread
+//     j updates their row j), two named barriers (bar.sync 1) a step. Every
+//     thread rebuilds the reflector itself from three values that the
+//     threads owning those rows wrote to a small double-buffered array. A
+//     round's control is one pass: thread j sums column j's squares (a warp
+//     shuffle tree, then one value a warp for ‖T‖_F), tests subdiagonal j,
+//     and a ballot a warp gives every thread the window [lo, hi).
+//   * the accumulator, thread r for row r of Q: the chain logs each
+//     reflector and rotation it applies to T's columns in a ring in shared
+//     memory (a producer counter, one consumer counter a warp), and thread
+//     r applies them to its row in order, without barriers, skipping those
+//     whose columns lie outside the row's nonzero span (exact: zeros stay
+//     zero). The chain waits only when the ring is full.
+// T and Q have an odd leading dimension, so a warp reading one column (32
+// rows) hits 32 banks.
 //
 // Bound on the H100: neither bytes nor operations but the latency of the
 // step chain: each chase step is a few W flops behind two barriers, and the
@@ -39,17 +51,18 @@
 // columns of T's three rows, the (k + 4) rows of its three columns and the
 // nonzero rows of Q's three columns.
 //
-// Memory: T lives in shared memory (W² values); Q too when both fit a
+// Memory: T and the ring live in shared memory; Q too when all fit a
 // block's 227 KB (W = 128 in float32), otherwise Q is updated in place in
 // the output in global memory (float64 at W = 128), where it stays in L2.
 #include <cuda_runtime.h>
 
-#include "common.cuh"
-
 namespace {
 
 constexpr size_t kSmemMax = 232448;  // 227 KB, a Hopper block's maximum
-constexpr int kThreads = 128;        // one thread per row or column, W ≤ 128
+constexpr int kMaxW = 128;
+constexpr int kMaxWarps = kMaxW / 32;  // of each group
+constexpr int kRing = 256;             // ops/schur_small.py::RING
+constexpr int kChainBarrier = 1;       // named barrier of the chain
 
 template <typename T>
 __device__ __forceinline__ T eps_of();
@@ -87,202 +100,323 @@ __device__ __forceinline__ void rot2(T g1, T g2, T* cs, T* sn) {
   *sn = nrm == T(0) ? T(0) : g2 / nrm;
 }
 
-// T ← Gᵀ·T·G and Q ← Q·G for G = I but [[cs, −sn], [sn, cs]] at (k, k+1):
-// rows first, then columns, as (Gᵀ·T)·G. Contains __syncthreads().
+// (x0, x1, x2) ← (I − τ·v·vᵀ)·(x0, x1, x2) for v = (1, v1, v2)
 template <typename T>
-__device__ void apply_rot2(T* t, T* q, int W, int ld, int ldq, int k, T cs, T sn) {
-  const int tid = threadIdx.x;
-  for (int c = tid; c < W; c += blockDim.x) {
-    const T r0 = t[k * ld + c], r1 = t[(k + 1) * ld + c];
-    t[k * ld + c] = cs * r0 + sn * r1;
-    t[(k + 1) * ld + c] = -sn * r0 + cs * r1;
-  }
-  __syncthreads();
-  for (int r = tid; r < W; r += blockDim.x) {
-    const T c0 = t[r * ld + k], c1 = t[r * ld + k + 1];
-    t[r * ld + k] = cs * c0 + sn * c1;
-    t[r * ld + k + 1] = -sn * c0 + cs * c1;
-    const T d0 = q[r * ldq + k], d1 = q[r * ldq + k + 1];
-    q[r * ldq + k] = cs * d0 + sn * d1;
-    q[r * ldq + k + 1] = -sn * d0 + cs * d1;
-  }
-  __syncthreads();
+__device__ __forceinline__ void reflect3(T* x0, T* x1, T* x2, T v1, T v2, T tau) {
+  const T a = *x0, b = *x1, c = *x2;
+  const T w = tau * (a + v1 * b + v2 * c);
+  *x0 = a - w;
+  *x1 = b - v1 * w;
+  *x2 = c - v2 * w;
 }
 
+// (x0, x1) ← (cs·x0 + sn·x1, −sn·x0 + cs·x1)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void rotate2(T* x0, T* x1, T cs, T sn) {
+  const T a = *x0, b = *x1;
+  *x0 = cs * a + sn * b;
+  *x1 = -sn * a + cs * b;
+}
+
+__device__ __forceinline__ void chain_sync(int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(kChainBarrier), "r"(nthreads) : "memory");
+}
+
+__device__ __forceinline__ int load_volatile(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+// The ring of column transforms, produced by chain thread 0 and consumed by
+// every accumulator warp. Entry n: k ≥ 0 a reflector (v1, v2, τ) on columns
+// k..k+2; k < 0 a rotation (cs, sn) on columns −k−1, −k.
+template <typename T>
+struct Ring {
+  T* val;         // kRing × 3
+  int* col;       // kRing
+  int* head;      // entries published
+  int* done;      // set once the chain has logged its last entry
+  int* consumed;  // one counter a consumer warp
+  int nconsumers;
+
+  // chain thread 0 only; `seen` caches the slowest consumer's count
+  __device__ void push(int& n, int& seen, int k, T a, T b, T c) {
+    while (n - kRing >= seen) {   // slot n still holds entry n − kRing
+      int m = load_volatile(consumed);
+      for (int w = 1; w < nconsumers; ++w) {
+        const int x = load_volatile(consumed + w);
+        m = x < m ? x : m;
+      }
+      seen = m;
+      if (n - kRing >= seen) __nanosleep(64);
+    }
+    const int s = n & (kRing - 1);
+    col[s] = k;
+    val[3 * s] = a;
+    val[3 * s + 1] = b;
+    val[3 * s + 2] = c;
+    __threadfence_block();
+    *reinterpret_cast<volatile int*>(head) = ++n;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(2 * kMaxW)
 schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict__ q_out,
                    T* __restrict__ lk_out, int* __restrict__ it_out, int W, int max_iter,
-                   int q_in_smem) {
+                   int ld, int nwarps, int q_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = W | 1;              // odd: conflict-free column access
   T* t = reinterpret_cast<T*>(smem_raw);
-  T* lk = t + (size_t)W * ld;        // W: 0/1 per subdiagonal position
-  T* red = lk + W;                   // 32: block_sum scratch
-  T* pbuf = red + 32;                // 2 × 3: the next bulge column, by parity
-  T* q = q_in_smem ? pbuf + 8 : q_out + (size_t)blockIdx.x * W * W;
+  T* q = q_in_smem ? t + (size_t)W * ld : q_out + (size_t)blockIdx.x * W * W;
   const int ldq = q_in_smem ? ld : W;
-  __shared__ int ctl[2];             // lo, hi
+  T* ringv = q_in_smem ? q + (size_t)W * ld : t + (size_t)W * ld;   // kRing × 3
+  T* lk = ringv + 3 * kRing;         // W: 0/1 per subdiagonal position
+  T* red = lk + W;                   // a partial ‖T‖_F² per chain warp
+  T* pbuf = red + kMaxWarps;         // 2 × 3: the next bulge column, by parity
+  int* ringk = reinterpret_cast<int*>(pbuf + 8);     // kRing
+  int* ballot = ringk + kRing;       // a live-subdiagonal mask per chain warp
+  int* ctl = ballot + kMaxWarps;     // head, done, consumed[kMaxWarps]
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nchain = 32 * nwarps;
   const size_t off = (size_t)blockIdx.x * W * W;
-  const T eps = eps_of<T>();
-  for (int idx = tid; idx < W * W; idx += blockDim.x) {
-    t[(idx / W) * ld + idx % W] = a[off + idx];
-    q[(idx / W) * ldq + idx % W] = (idx / W == idx % W) ? T(1) : T(0);
-  }
+  for (int r = warp; r < W; r += nwarps)
+    for (int c = lane; c < W; c += 32) {
+      t[r * ld + c] = a[off + r * W + c];
+      q[r * ldq + c] = r == c ? T(1) : T(0);
+    }
   for (int j = tid; j < W; j += blockDim.x) lk[j] = T(0);
+  if (tid < 2 + kMaxWarps) ctl[tid] = 0;
   __syncthreads();
+  Ring<T> ring{ringv, ringk, ctl, ctl + 1, ctl + 2, nwarps};
 
-  int it = 0, stuck = 0, hi_prev = -1;
-  while (hi_prev != 0 && it < max_iter) {
-    // ---- deflation scan, with the norm floor eps·‖T‖_F
-    T s = T(0);
-    for (int idx = tid; idx < W * W; idx += blockDim.x) {
-      const T x = t[(idx / W) * ld + idx % W];
-      s += x * x;
-    }
-    const T floor = eps * sqrt(nd4js::block_sum(s, red));
-    for (int j = tid; j < W - 1; j += blockDim.x) {
-      const T sub = t[(j + 1) * ld + j];
-      const T dsum = fabs(t[j * ld + j]) + fabs(t[(j + 1) * ld + j + 1]);
-      const T thr = T(16) * eps * dsum;
-      if (fabs(sub) <= (thr > floor ? thr : floor)) t[(j + 1) * ld + j] = T(0);
-    }
-    __syncthreads();
-    // ---- re-zero next to locked pairs
-    for (int j = tid; j < W - 1; j += blockDim.x) {
-      const bool me = lk[j] > T(0.5);
-      const bool nbr = (j > 0 && lk[j - 1] > T(0.5)) || lk[j + 1] > T(0.5);
-      if (nbr && !me) t[(j + 1) * ld + j] = T(0);
-    }
-    __syncthreads();
-    // ---- active window [lo, hi)
-    if (tid == 0) {
-      int hi = 0;
-      for (int j = 0; j < W - 1; ++j)
-        if (lk[j] <= T(0.5) && t[(j + 1) * ld + j] != T(0)) hi = j + 2;
-      int lo = 0;
-      for (int j = 0; j < hi - 1; ++j)
-        if (!(lk[j] <= T(0.5) && t[(j + 1) * ld + j] != T(0))) lo = j + 1;
-      ctl[0] = lo;
-      ctl[1] = hi;
-    }
-    __syncthreads();
-    const int lo = ctl[0], hi = ctl[1];
-    const bool size2 = hi - lo == 2;
-    if (hi > 0 && size2) {
-      const T aa = t[lo * ld + lo], bb = t[lo * ld + lo + 1];
-      const T cc = t[(lo + 1) * ld + lo], dd = t[(lo + 1) * ld + lo + 1];
-      const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
-      // every thread has read the block before apply_rot2 rewrites it (a
-      // late reader would build another rotation, or skip its barriers)
-      __syncthreads();
-      if (disc >= T(0)) {
-        // cancellation-free: λ−aa = −sgn(p)(|p|+sq), λ−dd = −sgn(p)·bc/(sq+|p|)
-        const T p = T(0.5) * (aa - dd);
-        const T sq = sqrt(disc > T(0) ? disc : T(0)) * T(0.5);
-        const T sgn = p >= T(0) ? T(1) : T(-1);
-        const T lam_m_aa = -sgn * (fabs(p) + sq);
-        const T den = sq + fabs(p);
-        const T lam_m_dd = -sgn * bb * cc / (den == T(0) ? T(1) : den);
-        const bool big_b = fabs(bb) >= fabs(cc);
-        T cs, sn;
-        rot2(big_b ? bb : lam_m_dd, big_b ? lam_m_aa : cc, &cs, &sn);
-        apply_rot2(t, q, W, ld, ldq, lo, cs, sn);
-        if (tid == 0) t[(lo + 1) * ld + lo] = T(0);
-      } else if (tid == 0) {
-        lk[lo] = T(1);
+  if (warp < nwarps) {
+    // ---- the chain: thread j owns column j (row updates) and row j
+    const int j = tid;
+    const bool jc = j < W;
+    const T eps = eps_of<T>();
+    int n = 0, seen = 0;   // ring producer state (thread 0)
+    // T ← Gᵀ·T·G and the rotation logged, G = [[cs, −sn], [sn, cs]] at
+    // (k, k+1): rows, a barrier, columns, a barrier. With `zero`, T[k+1, k]
+    // is set to 0 instead (a standardised 2×2 block).
+    auto rotate = [&](int k, T cs, T sn, bool zero) {
+      if (jc) rotate2(&t[k * ld + j], &t[(k + 1) * ld + j], cs, sn);
+      chain_sync(nchain);
+      if (jc) {
+        rotate2(&q[j * ldq + k], &q[j * ldq + k + 1], cs, sn);
+        rotate2(&t[j * ld + k], &t[j * ld + k + 1], cs, sn);
+        if (zero && j == k + 1) t[j * ld + k] = T(0);
       }
-    } else if (hi > 0) {
-      const int m = hi - 2;
-      const T h_mm = t[m * ld + m], h_nn = t[(hi - 1) * ld + hi - 1];
-      const T h_mn = t[m * ld + hi - 1], h_nm = t[(hi - 1) * ld + m];
-      T tr = h_mm + h_nn;
-      T det = h_mm * h_nn - h_mn * h_nm;
-      if (stuck % 10 == 9) {   // exceptional shift (dlahqr)
-        const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * ld + m - 1]) : T(0));
-        const T lam = h_nn + T(0.75) * s_mag;
-        tr = T(2) * lam;
-        det = lam * lam;
-      }
-      const T h00 = t[lo * ld + lo], h01 = t[lo * ld + lo + 1];
-      const T h10 = t[(lo + 1) * ld + lo], h11 = t[(lo + 1) * ld + lo + 1];
-      const T h21 = t[(lo + 2) * ld + lo + 1];
-      T p0 = h00 * h00 + h01 * h10 - tr * h00 + det;
-      T p1 = h10 * (h00 + h11 - tr);
-      T p2 = h10 * h21;
-      __syncthreads();   // every thread has read the seed before the rows move
-      for (int k = lo; k < hi - 2; ++k) {
-        const House3<T> h = house3(p0, p1, p2);
-        if (h.tau != T(0)) {
-          for (int c = tid; c < W; c += blockDim.x) {
-            const T w = h.tau * (t[k * ld + c] + h.v1 * t[(k + 1) * ld + c] +
-                                 h.v2 * t[(k + 2) * ld + c]);
-            t[k * ld + c] -= w;
-            t[(k + 1) * ld + c] -= h.v1 * w;
-            t[(k + 2) * ld + c] -= h.v2 * w;
-          }
+      chain_sync(nchain);
+    };
+    int it = 0, stuck = 0, hi_prev = -1;
+    while (hi_prev != 0 && it < max_iter) {
+      // ---- one pass: ‖T‖_F² by columns, and subdiagonal j
+      T ss = T(0);
+      if (jc)
+        for (int r = 0; r < W; ++r) {
+          const T x = t[r * ld + j];
+          ss += x * x;
         }
-        __syncthreads();
-        T* nxt = pbuf + 3 * ((k - lo) & 1);
-        for (int r = tid; r < W; r += blockDim.x) {
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      if (lane == 0) red[warp] = ss;
+      const bool js = j < W - 1;
+      T sub = T(0), d0 = T(0), d1 = T(0);
+      if (js) {
+        sub = t[(j + 1) * ld + j];
+        d0 = t[j * ld + j];
+        d1 = t[(j + 1) * ld + j + 1];
+      }
+      chain_sync(nchain);
+      T total = T(0);
+      for (int w = 0; w < nwarps; ++w) total += red[w];
+      const T floor = eps * sqrt(total);
+      bool live = false;
+      if (js) {
+        const T thr = T(16) * eps * (fabs(d0) + fabs(d1));
+        const bool me = lk[j] > T(0.5);
+        const bool nbr = (j > 0 && lk[j - 1] > T(0.5)) || lk[j + 1] > T(0.5);
+        if (fabs(sub) <= (thr > floor ? thr : floor) || (nbr && !me)) {
+          t[(j + 1) * ld + j] = T(0);
+          sub = T(0);
+        }
+        live = !me && sub != T(0);
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) ballot[warp] = (int)mask;
+      chain_sync(nchain);
+      // ---- the window: hi − 2 the last live subdiagonal, lo − 1 the last
+      // dead one below it
+      int hi = 0, lo = 0;
+      for (int w = nwarps - 1; w >= 0; --w) {
+        const unsigned m = (unsigned)ballot[w];
+        if (m) {
+          hi = 32 * w + 31 - __clz(m) + 2;
+          break;
+        }
+      }
+      for (int w = (hi - 2) >> 5; hi > 0 && w >= 0; --w) {
+        const int top = hi - 2 - 32 * w;   // bits 0..top−1 lie below hi − 2
+        const unsigned below = top >= 32 ? 0xffffffffu : ((1u << top) - 1u);
+        const unsigned dead = ~(unsigned)ballot[w] & below;
+        if (dead) {
+          lo = 32 * w + 31 - __clz(dead) + 1;
+          break;
+        }
+      }
+      const bool size2 = hi - lo == 2;
+      if (hi > 0 && size2) {
+        const T aa = t[lo * ld + lo], bb = t[lo * ld + lo + 1];
+        const T cc = t[(lo + 1) * ld + lo], dd = t[(lo + 1) * ld + lo + 1];
+        const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
+        // every thread has read the block before the rotation rewrites it
+        chain_sync(nchain);
+        if (disc >= T(0)) {
+          // cancellation-free: λ−aa = −sgn(p)(|p|+sq), λ−dd = −sgn(p)·bc/(sq+|p|)
+          const T p = T(0.5) * (aa - dd);
+          const T sq = sqrt(disc > T(0) ? disc : T(0)) * T(0.5);
+          const T sgn = p >= T(0) ? T(1) : T(-1);
+          const T lam_m_aa = -sgn * (fabs(p) + sq);
+          const T den = sq + fabs(p);
+          const T lam_m_dd = -sgn * bb * cc / (den == T(0) ? T(1) : den);
+          const bool big_b = fabs(bb) >= fabs(cc);
+          T cs, sn;
+          rot2(big_b ? bb : lam_m_dd, big_b ? lam_m_aa : cc, &cs, &sn);
+          rotate(lo, cs, sn, true);
+        } else if (j == 0) {
+          lk[lo] = T(1);   // read after the next round's first barrier
+        }
+      } else if (hi > 0) {
+        const int m = hi - 2;
+        const T h_mm = t[m * ld + m], h_nn = t[(hi - 1) * ld + hi - 1];
+        const T h_mn = t[m * ld + hi - 1], h_nm = t[(hi - 1) * ld + m];
+        T tr = h_mm + h_nn;
+        T det = h_mm * h_nn - h_mn * h_nm;
+        if (stuck % 10 == 9) {   // exceptional shift (dlahqr)
+          const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * ld + m - 1]) : T(0));
+          const T lam = h_nn + T(0.75) * s_mag;
+          tr = T(2) * lam;
+          det = lam * lam;
+        }
+        const T h00 = t[lo * ld + lo], h01 = t[lo * ld + lo + 1];
+        const T h10 = t[(lo + 1) * ld + lo], h11 = t[(lo + 1) * ld + lo + 1];
+        const T h21 = t[(lo + 2) * ld + lo + 1];
+        T p0 = h00 * h00 + h01 * h10 - tr * h00 + det;
+        T p1 = h10 * (h00 + h11 - tr);
+        T p2 = h10 * h21;
+        chain_sync(nchain);   // every thread has read the seed before the rows move
+        for (int k = lo; k < hi - 2; ++k) {
+          const House3<T> h = house3(p0, p1, p2);
           if (h.tau != T(0)) {
-            T* tr_ = t + r * ld + k;
-            const T w = h.tau * (tr_[0] + h.v1 * tr_[1] + h.v2 * tr_[2]);
-            tr_[0] -= w;
-            tr_[1] -= h.v1 * w;
-            tr_[2] -= h.v2 * w;
-            T* qr = q + r * ldq + k;
-            const T wq = h.tau * (qr[0] + h.v1 * qr[1] + h.v2 * qr[2]);
-            qr[0] -= wq;
-            qr[1] -= h.v1 * wq;
-            qr[2] -= h.v2 * wq;
+            if (jc)
+              reflect3(&t[k * ld + j], &t[(k + 1) * ld + j], &t[(k + 2) * ld + j], h.v1,
+                       h.v2, h.tau);
           }
-          // the next bulge column T[k+1..k+3, k], from the rows' owners
-          if (r >= k + 1 && r <= k + 3) nxt[r - k - 1] = t[r * ld + k];
+          chain_sync(nchain);
+          T* nxt = pbuf + 3 * ((k - lo) & 1);
+          if (jc) {
+            T* row = t + j * ld + k;
+            if (h.tau != T(0)) {
+              reflect3(row, row + 1, row + 2, h.v1, h.v2, h.tau);
+              T* qrow = q + j * ldq + k;
+              reflect3(qrow, qrow + 1, qrow + 2, h.v1, h.v2, h.tau);
+            }
+            // the next bulge column T[k+1..k+3, k], from the rows' owners
+            if (j >= k + 1 && j <= k + 3) nxt[j - k - 1] = row[0];
+          }
+          chain_sync(nchain);
+          p0 = nxt[0];
+          p1 = nxt[1];
+          p2 = (k + 3 < hi) ? nxt[2] : T(0);
         }
-        __syncthreads();
-        p0 = nxt[0];
-        p1 = nxt[1];
-        p2 = (k + 3 < hi) ? nxt[2] : T(0);
+        T cs, sn;
+        rot2(p0, p1, &cs, &sn);
+        rotate(hi - 2, cs, sn, false);
       }
-      T cs, sn;
-      rot2(p0, p1, &cs, &sn);
-      apply_rot2(t, q, W, ld, ldq, hi - 2, cs, sn);
+      if (hi > 0) stuck = size2 ? 0 : stuck + 1;
+      if (hi != hi_prev) stuck = 0;
+      hi_prev = hi;
+      ++it;
     }
-    if (hi > 0) stuck = size2 ? 0 : stuck + 1;
-    if (hi != hi_prev) stuck = 0;
-    hi_prev = hi;
-    ++it;
-    __syncthreads();
+    if (j == 0) {
+      it_out[blockIdx.x] = it;
+      __threadfence_block();
+      *reinterpret_cast<volatile int*>(ring.done) = 1;
+    }
+  } else {
+    // ---- the accumulator: thread r owns row r of Q
+    const int r = tid - nchain;
+    const int cw = warp - nwarps;
+    int cmin = r, cmax = r;   // the row's nonzeros lie in [cmin, cmax]
+    T* qr = q + (size_t)r * ldq;
+    int n = 0;
+    for (;;) {
+      // one read a warp, so that its lanes consume the same entries
+      int h = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.head) : 0, 0);
+      if (n == h) {
+        const int fin = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.done) : 0, 0);
+        if (!fin) {
+          __nanosleep(64);
+          continue;
+        }
+        // done was set after the last push: head is final
+        h = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.head) : 0, 0);
+        if (n == h) break;
+      }
+      __threadfence_block();
+      for (; n < h; ++n) {
+        const int s = n & (kRing - 1);
+        const int k = ringk[s];
+        const T* e = ringv + 3 * s;
+        if (r >= W) continue;
+        if (k >= 0) {
+          if (k > cmax || k + 2 < cmin) continue;
+          reflect3(qr + k, qr + k + 1, qr + k + 2, e[0], e[1], e[2]);
+          cmin = k < cmin ? k : cmin;
+          cmax = k + 2 > cmax ? k + 2 : cmax;
+        } else {
+          const int c = -k - 1;
+          if (c > cmax || c + 1 < cmin) continue;
+          rotate2(qr + c, qr + c + 1, e[0], e[1]);
+          cmin = c < cmin ? c : cmin;
+          cmax = c + 1 > cmax ? c + 1 : cmax;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        *reinterpret_cast<volatile int*>(ring.consumed + cw) = n;
+      }
+    }
   }
-
-  for (int idx = tid; idx < W * W; idx += blockDim.x) {
-    t_out[off + idx] = t[(idx / W) * ld + idx % W];
-    if (q_in_smem) q_out[off + idx] = q[(idx / W) * ld + idx % W];
-  }
+  __syncthreads();
+  for (int r = warp; r < W; r += nwarps)
+    for (int c = lane; c < W; c += 32) {
+      t_out[off + r * W + c] = t[r * ld + c];
+      if (q_in_smem) q_out[off + r * W + c] = q[r * ld + c];
+    }
   for (int j = tid; j < W; j += blockDim.x) lk_out[(size_t)blockIdx.x * W + j] = lk[j];
-  if (tid == 0) it_out[blockIdx.x] = it;
+}
+
+// Shared memory of a launch: T and, when q_in_smem, Q (W rows of ld each),
+// the ring, the locks, the reductions' scratch and the counters.
+size_t smem_need(int W, int ld, int q_in_smem, size_t elem) {
+  return elem * ((size_t)W * ld * (q_in_smem ? 2 : 1) + 3 * kRing + W + kMaxWarps + 8) +
+         sizeof(int) * (kRing + 2 * kMaxWarps + 2);
 }
 
 template <typename T>
-size_t smem_bytes(int W, bool q_in_smem) {
-  return sizeof(T) * ((size_t)W * (W | 1) * (q_in_smem ? 2 : 1) + W + 32 + 8);
-}
-
-template <typename T>
-int launch(const T* a, T* t, T* q, T* lk, int* its, int nb, int W, int max_iter,
-           void* stream) {
-  if (W < 1 || W > kThreads) return (int)cudaErrorInvalidValue;
+int launch(const T* a, T* t, T* q, T* lk, int* its, int nb, int W, int max_iter, int ld,
+           int nwarps, int q_in_smem, size_t smem, void* stream) {
+  if (W < 1 || W > kMaxW || ld < W || (ld & 1) == 0 || 32 * nwarps < W ||
+      nwarps > kMaxWarps || smem < smem_need(W, ld, q_in_smem, sizeof(T)) ||
+      smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
   if (nb == 0) return (int)cudaSuccess;
-  const bool q_in_smem = smem_bytes<T>(W, true) <= kSmemMax;
-  const size_t smem = smem_bytes<T>(W, q_in_smem);
   cudaError_t e = cudaFuncSetAttribute(schur_small_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  schur_small_kernel<T><<<nb, kThreads, smem, (cudaStream_t)stream>>>(
-      a, t, q, lk, its, W, max_iter, (int)q_in_smem);
+  schur_small_kernel<T><<<nb, 32 * nwarps, smem, (cudaStream_t)stream>>>(
+      a, t, q, lk, its, W, max_iter, ld, nwarps, q_in_smem);
   return (int)cudaGetLastError();
 }
 
@@ -291,13 +425,38 @@ int launch(const T* a, T* t, T* q, T* lk, int* its, int nb, int W, int max_iter,
 extern "C" {
 
 int nd4js_schur_small_f32(const float* a, float* t, float* q, float* lk, int* its, int nb,
-                          int W, int max_iter, void* stream) {
-  return launch<float>(a, t, q, lk, its, nb, W, max_iter, stream);
+                          int W, int max_iter, int ld, int nwarps, int q_in_smem,
+                          size_t smem, void* stream) {
+  return launch<float>(a, t, q, lk, its, nb, W, max_iter, ld, nwarps, q_in_smem, smem,
+                       stream);
 }
 
 int nd4js_schur_small_f64(const double* a, double* t, double* q, double* lk, int* its,
-                          int nb, int W, int max_iter, void* stream) {
-  return launch<double>(a, t, q, lk, its, nb, W, max_iter, stream);
+                          int nb, int W, int max_iter, int ld, int nwarps, int q_in_smem,
+                          size_t smem, void* stream) {
+  return launch<double>(a, t, q, lk, its, nb, W, max_iter, ld, nwarps, q_in_smem, smem,
+                        stream);
+}
+
+// Blocks of one launch that an SM holds at once (0 if none), from the
+// kernel's registers and `smem` bytes of shared memory.
+int nd4js_schur_small_blocks_per_sm(int f64, int nwarps, size_t smem) {
+  int blocks = 0;
+  cudaError_t e;
+  if (f64) {
+    e = cudaFuncSetAttribute(schur_small_kernel<double>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, schur_small_kernel<double>,
+                                                        32 * nwarps, smem);
+  } else {
+    e = cudaFuncSetAttribute(schur_small_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, schur_small_kernel<float>,
+                                                        32 * nwarps, smem);
+  }
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 }  // extern "C"

@@ -37,9 +37,10 @@ SMEM_MAX = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _D, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
+    ctypes.c_size_t
 # C signatures of csrc/*.cu: every pointer and the stream as c_void_p, a
-# real scalar as a double in both precisions
+# real scalar as a double in both precisions, a byte count as size_t
 _SIGNATURES = {
     "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _P]),
     "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
@@ -60,10 +61,11 @@ _SIGNATURES = {
     "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "nd4js_rrqr_f64": (_I, [_P] * 6 + [_I] * 4 + [_P]),
-    "nd4js_schur_small_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
-    "nd4js_schur_small_f64": (_I, [_P] * 5 + [_I] * 3 + [_P]),
-    "nd4js_bulge_chase_f32": (_I, [_P] * 5 + [_I] * 7 + [_P]),
-    "nd4js_bulge_chase_f64": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "nd4js_schur_small_f32": (_I, [_P] * 5 + [_I] * 6 + [_S, _P]),
+    "nd4js_schur_small_f64": (_I, [_P] * 5 + [_I] * 6 + [_S, _P]),
+    "nd4js_schur_small_blocks_per_sm": (_I, [_I, _I, _S]),
+    "nd4js_bulge_chase_f32": (_I, [_P] * 5 + [_I] * 12 + [_S, _P]),
+    "nd4js_bulge_chase_f64": (_I, [_P] * 5 + [_I] * 12 + [_S, _P]),
     "nd4js_trevc_solve_f32": (_I, [_P] * 7 + [_I, _I, _D, _P]),
     "nd4js_trevc_solve_f64": (_I, [_P] * 7 + [_I, _I, _D, _P]),
 }

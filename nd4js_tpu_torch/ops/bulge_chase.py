@@ -14,15 +14,58 @@ entry 0 once k + 3 ≥ hi).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
-__all__ = ["bulge_chase_steps", "bulge_chase_steps_ref"]
+__all__ = ["bulge_chase_steps", "bulge_chase_steps_ref", "plan"]
+
+# warps of one launch at most (csrc/bulge_chase.cu kMaxThreads / 32)
+MAX_WARPS = 20
+# row or column items an update warp's thread takes in one phase of a step,
+# which sets how many update warps a slide gets (at most 8)
+UPDATE_ITEMS = 4
 
 # Kernel launches since the last reset; only bulge_chase_steps' CUDA branch
 # adds to it, one per call (one call is one slide of ``sl`` steps).
 launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
+    """Launch layout of one slide of ``SL`` steps of ``NB`` bulges through
+    a (W, W) block: (ld, reflector warps, update warps, accumulator warps,
+    V_acc in shared memory, shared-memory bytes).
+
+    ld = W rounded up to an odd number, the leading dimension of B and
+    V_acc in shared memory (a column of 32 rows then hits 32 banks). One
+    reflector warp for each 32 bulges; one accumulator thread for each row
+    of V_acc; update warps enough for one thread a column and, up to 8, for
+    UPDATE_ITEMS items a thread and phase (NB·W items). B and the
+    reflector log (SL·NB·3 values) always sit in shared memory, V_acc too
+    when all fit 227 KB, else it is updated in place in global memory.
+    Raises ValueError where the kernel cannot run: sl + 3·NB > W, B and the
+    log over 227 KB, or more than MAX_WARPS warps.
+    """
+    if W < 4 or NB < 1 or SL < 0 or SL + 3 * NB > W:
+        raise ValueError(f"bulge_chase_steps: needs W >= 4, NB >= 1 and "
+                         f"0 <= sl <= W - 3·NB, got W={W}, NB={NB}, sl={SL}")
+    elem = torch.finfo(dtype).bits // 8
+    ld = W | 1
+    nref = -(-NB // 32)
+    nacc = 0
+    nupd = max(-(-W // 32), min(8, -(-NB * W // (32 * UPDATE_ITEMS))))
+    core = elem * (W * ld + SL * NB * 3) + 16
+    v_in_smem = core + elem * W * ld <= _build.SMEM_MAX
+    smem = core + (elem * W * ld if v_in_smem else 0)
+    if smem > _build.SMEM_MAX or nref + nupd + nacc > MAX_WARPS:
+        raise ValueError(f"bulge_chase_steps: a ({W}, {W}) block with {NB} "
+                         f"bulges over {SL} steps does not fit one block "
+                         f"({smem} bytes of shared memory, "
+                         f"{nref + nupd + nacc} warps) in {dtype}")
+    return ld, nref, nupd, nacc, v_in_smem, smem
 
 
 def bulge_chase_steps_ref(b, p, shifts, k0: int, lo: int, hi: int, sl: int,
@@ -96,8 +139,8 @@ def bulge_chase_steps(b, p, shifts, k0: int, lo: int, hi: int, sl: int,
     sl + 3·NB ≤ W. Returns (V_acc, p'): B' = V_accᵀ·B·V_acc and the
     carries after the last step.
 
-    A CUDA tensor runs the kernel (or raises); a CPU tensor runs
-    :func:`bulge_chase_steps_ref`.
+    A CUDA tensor runs the kernel in the layout of :func:`plan` (or
+    raises); a CPU tensor runs :func:`bulge_chase_steps_ref`.
     """
     global launches
     on_card = _build.check_operand(b, "bulge_chase_steps", 2)
@@ -111,6 +154,7 @@ def bulge_chase_steps(b, p, shifts, k0: int, lo: int, hi: int, sl: int,
                          f"{tuple(shifts.shape)}, sl={sl}")
     if not on_card:
         return bulge_chase_steps_ref(b, p, shifts, k0, lo, hi, sl, seed)
+    ld, nref, nupd, nacc, v_in_smem, smem = plan(W, NB, sl, b.dtype)
     b = b.contiguous()
     p = p.to(b.dtype).contiguous()
     shifts = shifts.to(b.dtype).contiguous()
@@ -119,6 +163,7 @@ def bulge_chase_steps(b, p, shifts, k0: int, lo: int, hi: int, sl: int,
     f64 = b.dtype == torch.float64
     _build.launch("nd4js_bulge_chase_f64" if f64 else "nd4js_bulge_chase_f32",
                   b.device, b, p, shifts, v, po, W, NB, sl, int(k0), int(lo),
-                  int(hi), int(seed))
+                  int(hi), int(seed), ld, nref, nupd, nacc, int(v_in_smem),
+                  smem)
     launches += 1
     return v, po

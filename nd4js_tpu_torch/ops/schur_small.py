@@ -14,15 +14,20 @@ must be upper Hessenberg.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import _build
 
-__all__ = ["MAX_W", "schur_small", "schur_small_ref"]
+__all__ = ["MAX_W", "blocks_per_sm", "plan", "schur_small", "schur_small_ref"]
 
 MAX_W = 128        # widest block the kernel takes
+# entries of the kernel's log of column transforms (csrc/schur_small.cu
+# kRing), and the most warps of each of its two groups
+RING = 256
+MAX_WARPS = MAX_W // 32
 
 # Kernel launches since the last reset; only schur_small's CUDA branch adds
 # to it, one per call (one call is the whole batch).
@@ -147,6 +152,38 @@ def _schur_small_one(a, max_iter: int):
     return t, tq[W:], locked, it, moves
 
 
+@functools.lru_cache(maxsize=256)
+def plan(W: int, dtype: torch.dtype):
+    """Launch layout of the kernel on (W, W) blocks: (ld, warps of each
+    group, Q in shared memory, shared-memory bytes a block).
+
+    ld = W rounded up to an odd number, the leading dimension of T and Q
+    in shared memory (a column of 32 rows then hits 32 banks). The chain
+    and the Q accumulator each get W threads rounded up to whole warps. T,
+    the ring of RING transforms, the locks and the scratch always sit in
+    shared memory, Q too when all fit 227 KB, else it is updated in place
+    in global memory. Raises ValueError for W outside 1..MAX_W.
+    """
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"schur_small: needs 1 <= W <= {MAX_W}, got {W}")
+    elem = torch.finfo(dtype).bits // 8
+    ld = W | 1
+    nwarps = -(-W // 32)
+    core = elem * (W * ld + 3 * RING + W + MAX_WARPS + 8) \
+        + 4 * (RING + 2 * MAX_WARPS + 2)
+    q_in_smem = core + elem * W * ld <= _build.SMEM_MAX
+    return ld, nwarps, q_in_smem, core + (elem * W * ld if q_in_smem else 0)
+
+
+def blocks_per_sm(W: int, dtype: torch.dtype) -> int:
+    """Blocks of a launch on (W, W) blocks that one SM holds at once, from
+    the built kernel's registers and the bytes of :func:`plan` (needs the
+    card): a batch of up to that many times the SMs runs in one wave."""
+    _, nwarps, _, smem = plan(W, dtype)
+    return _build.library().nd4js_schur_small_blocks_per_sm(
+        int(dtype == torch.float64), nwarps, smem)
+
+
 def schur_small_ref(a, max_iter_factor: int = 40):
     """Plain PyTorch version of the kernel, one matrix at a time. Returns
     (t_raw, q, locked, iters) as :func:`schur_small`."""
@@ -170,8 +207,8 @@ def schur_small(a, max_iter_factor: int = 40):
     locked: (Nb, W) 0/1 per subdiagonal position locked as a complex pair;
     iters: (Nb,) int32 rounds taken.
 
-    A CUDA tensor runs the kernel (or raises); a CPU tensor runs
-    :func:`schur_small_ref`.
+    A CUDA tensor runs the kernel in the layout of :func:`plan` (or
+    raises); a CPU tensor runs :func:`schur_small_ref`.
     """
     global launches
     on_card = _build.check_operand(a, "schur_small", 3)
@@ -181,6 +218,7 @@ def schur_small(a, max_iter_factor: int = 40):
                          f"{MAX_W}, got {tuple(a.shape)}")
     if not on_card:
         return schur_small_ref(a, max_iter_factor)
+    ld, nwarps, q_in_smem, smem = plan(W, a.dtype)
     a = a.contiguous()
     t = torch.empty_like(a)
     q = torch.empty_like(a)
@@ -188,6 +226,7 @@ def schur_small(a, max_iter_factor: int = 40):
     its = torch.empty((nb,), dtype=torch.int32, device=a.device)
     f64 = a.dtype == torch.float64
     _build.launch("nd4js_schur_small_f64" if f64 else "nd4js_schur_small_f32",
-                  a.device, a, t, q, lk, its, nb, W, max_iter_factor * W)
+                  a.device, a, t, q, lk, its, nb, W, max_iter_factor * W, ld,
+                  nwarps, int(q_in_smem), smem)
     launches += 1
     return t, q, lk, its
