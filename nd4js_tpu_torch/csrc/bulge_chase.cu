@@ -255,20 +255,7 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       chain_sync(nchain);
       if (g < G) update_phase<T, true>(b, ld, rl, t, OFF, a, z, g, G, c);
       chain_sync(nchain);
-      if (g < G) {
-        update_phase<T, false>(b, ld, rl, t, OFF, a, z, g, G, c);
-        for (int i = a + g; i <= z; i += G) {
-          const T tau = rl[3 * i + 2];
-          const int kb = t + OFF - 3 * i;
-          if (tau == T(0)) continue;
-          T* vr = v + (size_t)c * ldv + kb;
-          T x0 = vr[0], x1 = vr[1], x2 = vr[2];
-          reflect3(x0, x1, x2, rl[3 * i], rl[3 * i + 1], tau);
-          vr[0] = x0;
-          vr[1] = x1;
-          vr[2] = x2;
-        }
-      }
+      if (g < G) update_phase<T, false>(b, ld, rl, t, OFF, a, z, g, G, c);
     }
   } else {
     // ---- accumulator warps: thread r for row r of V_acc
@@ -314,7 +301,7 @@ int launch(const T* b, const T* p, const T* shifts, T* v, T* po, int W, int NB, 
   // every active bulge's 3-row support lies inside the block; the plan's
   // groups cover the bulges, the columns and the rows
   if (W < 4 || NB < 1 || SL < 0 || SL + 3 * NB > W || ld < W || (ld & 1) == 0 ||
-      32 * nref < NB || 32 * nupd < W ||
+      32 * nref < NB || 32 * nupd < W || 32 * nacc < W ||
       32 * (nref + nupd + nacc) > kMaxThreads ||
       smem < smem_need(W, NB, SL, ld, v_in_smem, sizeof(T)) || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;

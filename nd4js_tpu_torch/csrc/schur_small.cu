@@ -179,7 +179,7 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nchain = 32 * nwarps;
   const size_t off = (size_t)blockIdx.x * W * W;
-  for (int r = warp; r < W; r += nwarps)
+  for (int r = warp; r < W; r += 2 * nwarps)
     for (int c = lane; c < W; c += 32) {
       t[r * ld + c] = a[off + r * W + c];
       q[r * ldq + c] = r == c ? T(1) : T(0);
@@ -200,9 +200,9 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
     // is set to 0 instead (a standardised 2×2 block).
     auto rotate = [&](int k, T cs, T sn, bool zero) {
       if (jc) rotate2(&t[k * ld + j], &t[(k + 1) * ld + j], cs, sn);
+      if (j == 0) ring.push(n, seen, -k - 1, cs, sn, T(0));
       chain_sync(nchain);
       if (jc) {
-        rotate2(&q[j * ldq + k], &q[j * ldq + k + 1], cs, sn);
         rotate2(&t[j * ld + k], &t[j * ld + k + 1], cs, sn);
         if (zero && j == k + 1) t[j * ld + k] = T(0);
       }
@@ -310,16 +310,13 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
             if (jc)
               reflect3(&t[k * ld + j], &t[(k + 1) * ld + j], &t[(k + 2) * ld + j], h.v1,
                        h.v2, h.tau);
+            if (j == 0) ring.push(n, seen, k, h.v1, h.v2, h.tau);
           }
           chain_sync(nchain);
           T* nxt = pbuf + 3 * ((k - lo) & 1);
           if (jc) {
             T* row = t + j * ld + k;
-            if (h.tau != T(0)) {
-              reflect3(row, row + 1, row + 2, h.v1, h.v2, h.tau);
-              T* qrow = q + j * ldq + k;
-              reflect3(qrow, qrow + 1, qrow + 2, h.v1, h.v2, h.tau);
-            }
+            if (h.tau != T(0)) reflect3(row, row + 1, row + 2, h.v1, h.v2, h.tau);
             // the next bulge column T[k+1..k+3, k], from the rows' owners
             if (j >= k + 1 && j <= k + 3) nxt[j - k - 1] = row[0];
           }
@@ -389,7 +386,7 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
     }
   }
   __syncthreads();
-  for (int r = warp; r < W; r += nwarps)
+  for (int r = warp; r < W; r += 2 * nwarps)
     for (int c = lane; c < W; c += 32) {
       t_out[off + r * W + c] = t[r * ld + c];
       if (q_in_smem) q_out[off + r * W + c] = q[r * ld + c];
@@ -415,7 +412,7 @@ int launch(const T* a, T* t, T* q, T* lk, int* its, int nb, int W, int max_iter,
   cudaError_t e = cudaFuncSetAttribute(schur_small_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  schur_small_kernel<T><<<nb, 32 * nwarps, smem, (cudaStream_t)stream>>>(
+  schur_small_kernel<T><<<nb, 64 * nwarps, smem, (cudaStream_t)stream>>>(
       a, t, q, lk, its, W, max_iter, ld, nwarps, q_in_smem);
   return (int)cudaGetLastError();
 }
@@ -448,13 +445,13 @@ int nd4js_schur_small_blocks_per_sm(int f64, int nwarps, size_t smem) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, schur_small_kernel<double>,
-                                                        32 * nwarps, smem);
+                                                        64 * nwarps, smem);
   } else {
     e = cudaFuncSetAttribute(schur_small_kernel<float>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, schur_small_kernel<float>,
-                                                        32 * nwarps, smem);
+                                                        64 * nwarps, smem);
   }
   return e == cudaSuccess ? blocks : -(int)e;
 }

@@ -55,8 +55,8 @@ def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
     elem = torch.finfo(dtype).bits // 8
     ld = W | 1
     nref = -(-NB // 32)
-    nacc = 0
-    nupd = max(-(-W // 32), min(8, -(-NB * W // (32 * UPDATE_ITEMS))))
+    nacc = -(-W // 32)
+    nupd = max(nacc, min(8, -(-NB * W // (32 * UPDATE_ITEMS))))
     core = elem * (W * ld + SL * NB * 3) + 16
     v_in_smem = core + elem * W * ld <= _build.SMEM_MAX
     smem = core + (elem * W * ld if v_in_smem else 0)
