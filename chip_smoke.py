@@ -143,6 +143,19 @@ SCHUR_C = 64
 # matrices of a schur_small batch that its plain version also runs (on the
 # host: one host read a chase step makes it slow on the card)
 SCHUR_SAMPLE = 8
+# trevc_solve in float32 against a float64 witness: its distance to the
+# witness within TREVC_C times the float32 plain version's. Over 12 seeds of
+# phase2_trevc's inputs (tools/trevc_witness.py on the H100) the kernel's
+# worst column was 0.40-3.46 times the plain version's, both within about
+# 10³ float32 eps of the witness; 8 leaves 2.3x over the largest ratio and
+# stays orders of magnitude under the O(1) gap of a wrong column.
+TREVC_C = 8
+
+# wall ms of the general eigen paths with the kernels bulge_chase_steps and
+# schur_small had before their redesign for Hopper: the range over the
+# parent's runs of tools/eigen_ab.py beside the redesign's, on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md §6, PR 10)
+WALLS_BEFORE = {}
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -277,9 +290,9 @@ def phase1():
 
 
 def phase2_qr(rng, errs):
-    # the stripe kernels' inputs come from a generator of their own, so
-    # that the later phases' checks draw the same inputs from `rng` as
-    # before these were added
+    # the stripe kernels' inputs come from a generator of their own: the
+    # checks after this one draw from `rng` the inputs they drew before the
+    # stripe checks were added, so their printed gaps compare across runs
     extra = np.random.default_rng(SEED + 1)
     for dtype in (torch.float32, torch.float64):
         for shape in ((32, 512, 128), (32, 384, 128), (32, 256, 128),
@@ -1147,6 +1160,19 @@ def chase_contract(b, v, pp, k0, lo, hi, sl):
     return maxabs(junk), carry
 
 
+def chase_layout(W, nb, sl, dtype) -> str:
+    ld, nref, nupd, nacc, v_sm, smem = bc.plan(W, nb, sl, dtype)
+    return (f"ld {ld}, warps {nref} reflector + {nupd} update + {nacc} "
+            f"accumulator, V_acc in {'shared' if v_sm else 'global'} memory, "
+            f"{smem} B")
+
+
+def schur_layout(W, dtype) -> str:
+    ld, nwarps, q_sm, smem = ss.plan(W, dtype)
+    return (f"ld {ld}, warps {nwarps} chain + {nwarps} accumulator, Q in "
+            f"{'shared' if q_sm else 'global'} memory, {smem} B")
+
+
 def phase2_chase(rng, errs, dtype):
     """bulge_chase_steps at the main path's window W = 128: the multishift
     slide NB = 16 seeded (k0 = lo) and carried (mid-sweep), and the classic
@@ -1171,7 +1197,8 @@ def phase2_chase(rng, errs, dtype):
             ev, ep = maxabs(v - vr), maxabs(pp - pr)
             check(junk <= unit and carry <= unit
                   and orth <= SCHUR_C * eps * W,
-                  f"{what} SL={sl}: junk below the subdiagonal of VᵀBV "
+                  f"{what} SL={sl} [{chase_layout(W, nb, sl, dtype)}]: "
+                  f"junk below the subdiagonal of VᵀBV "
                   f"{junk:.3e}, carries against its bulge columns "
                   f"{carry:.3e}, each <= {unit:.3e}; max |VᵀV - I| = "
                   f"{orth:.3e} <= {SCHUR_C * eps * W:.3e}")
@@ -1246,7 +1273,7 @@ def phase2_schur_small(rng, errs, dtype):
     eps = torch.finfo(dtype).eps
     for shape in ((1, 48, 48), (1, 128, 128), (256, 64, 64)):
         W = shape[-1]
-        what = f"schur_small {shape} {dtype}"
+        what = f"schur_small {shape} {dtype} [{schur_layout(W, dtype)}]"
         a = torch.from_numpy(hessenberg_blocks(rng, shape)).to(DEVICE, dtype)
         t, q, lk, its = ss.schur_small(a)
         schur_contract(what, a, t, q, lk, dtype)
@@ -1299,20 +1326,42 @@ def unit_columns(x):
     return x[0] / nrm, x[1] / nrm
 
 
+def unit_gap(x, y) -> float:
+    """max |x − y| over both parts of two split-complex unit-column sets,
+    in float64."""
+    return max(maxabs(x[0].double() - y[0].double()),
+               maxabs(x[1].double() - y[1].double()))
+
+
 def phase2_trevc(rng, errs, dtype):
     """trevc_solve at config 4's n = 1024 and at 192 with a defective
-    cluster: the columns within TOL of the plain version's after
-    normalising each (columns are defined up to scale)."""
+    cluster, the columns compared after normalising each (columns are
+    defined up to scale). float64: within TOL of the plain version's.
+    float32: the back substitution amplifies rounding by up to ~10³ eps
+    in both versions alike, so the kernel is held to a float64 witness
+    (the plain version in float64 on the same rounded input and
+    thresholds, as tools/trevc_witness.py runs it): its distance to the
+    witness within max(TOL, TREVC_C × the float32 plain version's)."""
     for n, cluster in ((1024, False), (192, True)):
         args = triangular_pair(rng, n, cluster, dtype)
         xk = unit_columns(tv.trevc_solve(*args))
         xr = unit_columns(tv.trevc_solve_ref(*args))
-        err = max(maxabs(xk[0] - xr[0]), maxabs(xk[1] - xr[1]))
-        check(err <= TOL[dtype], f"trevc_solve (1, {n}, {n}) {dtype}"
-              f"{' with a cluster of three' if cluster else ''}: max |x - "
-              f"plain| over unit columns = {err:.3e} <= {TOL[dtype]:.0e}")
-        if dtype == torch.float32:
-            errs["trevc_solve"] = max(errs["trevc_solve"], err)
+        err = unit_gap(xk, xr)
+        what = (f"trevc_solve (1, {n}, {n}) {dtype}"
+                f"{' with a cluster of three' if cluster else ''}")
+        if dtype == torch.float64:
+            check(err <= TOL[dtype], f"{what}: max |x - plain| over unit "
+                  f"columns = {err:.3e} <= {TOL[dtype]:.0e}")
+            continue
+        wide = [a.double() if torch.is_tensor(a) else a for a in args]
+        xw = unit_columns(tv.trevc_solve_ref(*wide))
+        kw, pw = unit_gap(xk, xw), unit_gap(xr, xw)
+        tol = max(TOL[dtype], TREVC_C * pw)
+        check(kw <= tol, f"{what}: max |x - float64 witness| over unit "
+              f"columns = {kw:.3e} <= {tol:.3e} = max({TOL[dtype]:.0e}, "
+              f"{TREVC_C} x the plain version's {pw:.3e}); kernel against "
+              f"plain {err:.3e}")
+        errs["trevc_solve"] = max(errs["trevc_solve"], err)
 
 
 def phase2_eigen(rng, errs):
@@ -1577,8 +1626,10 @@ def chase_cost(b, nb, sl, k0, lo, hi):
 
 
 def schur_small_cost(a):
-    """(flops, bytes) of schur_small on a, along the trajectory its plain
-    version takes on the same input: 2·W² a round (‖T‖_F); per chase step
+    """(flops, bytes, steps) of schur_small on a, along the trajectory its
+    plain version takes on the same input; steps: the most chase steps of
+    one matrix (the launch's dependent chain). 2·W² flops a round
+    (‖T‖_F); per chase step
     at k over [lo, hi), 10 flops for each of T's W − k + 1 columns in
     three rows (W − k at k = lo), its min(k + 4, hi) rows in three
     columns and the nonzero rows of Q's three columns (followed on Q's
@@ -1586,10 +1637,11 @@ def schur_small_cost(a):
     W − k + 1 columns (W − k for a standardisation), k + 2 rows of T and
     Q's nonzero rows. A read once, T, Q and the locks written once."""
     nb, W, _ = a.shape
-    flops = 0
+    flops = steps = 0
     for m in a.cpu():
         _, _, _, rounds, moves = ss._schur_small_one(m, 40 * W)
         flops += rounds * 2 * W * W
+        steps = max(steps, sum(hi - lo - 2 for lo, hi in moves))
         qp = np.eye(W, dtype=bool)
         for lo, hi in moves:
             if hi - lo > 2:
@@ -1599,7 +1651,7 @@ def schur_small_cost(a):
             k = hi - 2
             flops += 6 * (W - k + (hi - lo > 2) + k + 2
                           + fill(qp, slice(k, k + 2), 1))
-    return flops, a.element_size() * nb * (3 * W * W + W)
+    return flops, a.element_size() * nb * (3 * W * W + W), steps
 
 
 def trevc_cost(n, size):
@@ -1646,24 +1698,25 @@ def eigen_rows(counts, errs, s, ab):
     p0 = torch.zeros((nb, 3), device=DEVICE)
     size = blk.element_size()
     rows = []
-    for name, src, repl, kern, plain, plain_iters, cost, shape in (
+    c48 = schur_small_cost(win48)
+    for name, src, repl, kern, plain, plain_iters, cost, shape, steps in (
             ("schur_small", "nd4js_tpu_torch/csrc/schur_small.cu",
              "nd4js_tpu/ops/schur_small.py:249",
              lambda: ss.schur_small(win48), lambda: ss.schur_small_ref(win48),
-             1, schur_small_cost(win48), list(win48.shape)),
+             1, c48[:2], list(win48.shape), c48[2]),
             ("bulge_chase_steps", "nd4js_tpu_torch/csrc/bulge_chase.cu",
              "nd4js_tpu/ops/bulge_chase.py:236",
              lambda: bc.bulge_chase_steps(blk, p0, shifts, 0, 0, W - 2, sl,
                                           True),
              lambda: bc.bulge_chase_steps_ref(blk, p0, shifts, 0, 0, W - 2,
                                               sl, True),
-             2, chase_cost(blk, nb, sl, 0, 0, W - 2), [W, W, nb, sl]),
+             2, chase_cost(blk, nb, sl, 0, 0, W - 2), [W, W, nb, sl], sl),
             ("trevc_solve", "nd4js_tpu_torch/csrc/trevc_solve.cu",
              "nd4js_tpu/ops/trevc_solve.py:164",
              lambda: tv.trevc_solve(*trevc_in),
              lambda: tv.trevc_solve_ref(*trevc_in), 2,
              trevc_cost(trevc_in[0].shape[-1], size),
-             list(trevc_in[0].shape))):
+             list(trevc_in[0].shape), None)):
         t_bound, by = bound(*cost)
         row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                "launches": counts[name], "max_abs_err": errs[name],
@@ -1671,40 +1724,59 @@ def eigen_rows(counts, errs, s, ab):
                "plain_ms": cuda_ms(plain, plain_iters),
                "bound_ms": t_bound, "bound_by": by, "library_ms": None,
                "shape": shape, "dtype": "float32"}
-        say(f"{name} {shape}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library none, bound {t_bound:.6f} ms "
-            f"({by})")
+        if steps:
+            # the dependent chain: a slide's SL steps, the window's chase
+            # steps along the plain version's trajectory
+            row |= {"steps": steps, "step_ms": row["ms"] / steps}
+        say(f"{name} {shape}: kernel {row['ms']:.4f} ms"
+            + (f" ({steps} dependent steps, {row['step_ms'] * 1e3:.3f} µs a "
+               "step)" if steps else "")
+            + f", plain {row['plain_ms']:.4f} ms, library none, bound "
+            f"{t_bound:.6f} ms ({by})")
         rows.append(row)
     # schur_small also at small_win's block and at the whole-matrix route's
     # batch of 64² Hessenberg matrices (its bound from the plain version's
     # work on SCHUR_SAMPLE of them, scaled to the batch)
     _, bal = la.eigen_balance_pre(ab)
     hb = schur_mod._hessenberg_core(bal)[0].contiguous()
-    fl, nbytes = schur_small_cost(hb[:SCHUR_SAMPLE])
+    fl, nbytes, hb_steps = schur_small_cost(hb[:SCHUR_SAMPLE])
     scale = hb.shape[0] / SCHUR_SAMPLE
     others = []
     for a, cost, plain_iters in ((win128, schur_small_cost(win128), 1),
-                                 (hb, (fl * scale, nbytes * scale), 0)):
-        t_bound, by = bound(*cost)
+                                 (hb, (fl * scale, nbytes * scale, hb_steps),
+                                  0)):
+        t_bound, by = bound(*cost[:2])
         other = {"shape": list(a.shape),
                  "ms": cuda_ms(lambda x=a: ss.schur_small(x), 5),
-                 "bound_ms": t_bound, "bound_by": by}
+                 "bound_ms": t_bound, "bound_by": by, "steps": cost[2]}
+        other["step_ms"] = other["ms"] / cost[2]
         if plain_iters:
             other["plain_ms"] = cuda_ms(lambda x=a: ss.schur_small_ref(x),
                                         plain_iters)
         others.append(other)
-        say(f"schur_small {other['shape']}: kernel {other['ms']:.4f} ms, "
-            f"plain {other.get('plain_ms', float('nan')):.4f} ms, bound "
-            f"{t_bound:.6f} ms ({by})"
+        say(f"schur_small {other['shape']}: kernel {other['ms']:.4f} ms "
+            f"({cost[2]} dependent steps, {other['step_ms'] * 1e3:.3f} µs a "
+            f"step), plain {other.get('plain_ms', float('nan')):.4f} ms, "
+            f"bound {t_bound:.6f} ms ({by})"
             + ("" if plain_iters else f", estimated from {SCHUR_SAMPLE} of "
-               f"{a.shape[0]} matrices; plain not timed"))
+               f"{a.shape[0]} matrices (steps: the slowest of them); plain "
+               "not timed"))
+    per_sm = ss.blocks_per_sm(hb.shape[-1], hb.dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"schur_small {list(hb.shape)}: {ss.plan(hb.shape[-1], hb.dtype)} "
+        f"(ld, warps a group, Q in shared memory, bytes); {per_sm} blocks an "
+        f"SM, {per_sm * sms} on the card at once: "
+        + ("one wave" if hb.shape[0] <= per_sm * sms else
+           f"{-(-hb.shape[0] // (per_sm * sms))} waves"))
     rows[0]["other_shapes"] = others
     return rows
 
 
 def eigen_walls(s, ab):
+    _, bal = la.eigen_balance_pre(s)
     wall = {"config 4 eigen (1024, 1024)":
             wall_ms(lambda: la.eigen(s, split=True)),
+            "schur_decomp (1024, 1024)": wall_ms(lambda: la.schur_decomp(bal)),
             "eigen (256, 64, 64)": wall_ms(lambda: la.eigen(ab, split=True))}
     for what, x in (("(1024, 1024)", s), ("(256, 64, 64)", ab)):
         try:
@@ -2062,7 +2134,9 @@ def main():
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():
         say(f"{what} float32 wall ms, {len(runs)} runs: "
-            + ", ".join(f"{w:.3f}" for w in runs))
+            + ", ".join(f"{w:.3f}" for w in runs)
+            + (f"; with PR 9's bulge_chase_steps and schur_small "
+               f"{WALLS_BEFORE[what]}" if what in WALLS_BEFORE else ""))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -49,13 +49,19 @@
 namespace {
 
 constexpr size_t kSmemMax = 232448;  // 227 KB, a Hopper block's maximum
-constexpr int kMaxThreads = 640;     // 20 warps: ops/bulge_chase.py::MAX_WARPS
+constexpr int kMaxThreads = 768;     // 24 warps: ops/bulge_chase.py::MAX_WARPS
 constexpr int kChainBarrier = 1;     // named barrier of the step chain
 constexpr int kChunk = 4;            // items an update thread loads at once
 
 template <typename T>
 struct House3 {
   T v1, v2, tau;
+};
+
+// a logged reflector, read with one vector load
+template <typename T>
+struct alignas(4 * sizeof(T)) Refl {
+  T v1, v2, tau, pad;
 };
 
 // la/schur.py _house3: the reflector annihilating p1, p2 (v0 = 1)
@@ -108,7 +114,7 @@ struct Slide {
 // [a, z]: thread (g, c) takes bulges a + g, a + g + G, …; the column phase
 // leaves rows kb+1..kb+3 of each bulge to its reflector lane.
 template <typename T, bool rows>
-__device__ __forceinline__ void update_phase(T* b, int ld, const T* rl, int t, int OFF,
+__device__ __forceinline__ void update_phase(T* b, int ld, const Refl<T>* rl, int t, int OFF,
                                              int a, int z, int g, int G, int c) {
   for (int i0 = a + g; i0 <= z; i0 += kChunk * G) {
     T x[kChunk][3], h[kChunk][3];
@@ -120,9 +126,10 @@ __device__ __forceinline__ void update_phase(T* b, int ld, const T* rl, int t, i
       const int kb = t + OFF - 3 * i;
       on[m] = i <= z;
       if (on[m]) {
-        h[m][0] = rl[3 * i];
-        h[m][1] = rl[3 * i + 1];
-        h[m][2] = rl[3 * i + 2];
+        const Refl<T> e = rl[i];
+        h[m][0] = e.v1;
+        h[m][1] = e.v2;
+        h[m][2] = e.tau;
         on[m] = h[m][2] != T(0) && (rows || c < kb + 1 || c > kb + 3);
       }
       base[m] = rows ? kb * ld + c : c * ld + kb;
@@ -150,15 +157,14 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
                    const T* __restrict__ shifts, T* __restrict__ v_out,
                    T* __restrict__ p_out, Slide s, int ld, int nref, int nupd,
                    int v_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(32) unsigned char smem_raw[];
   const int W = s.W, NB = s.NB, SL = s.SL, OFF = s.OFF;
-  T* b = reinterpret_cast<T*>(smem_raw);
-  T* rlog = b + (size_t)W * ld;   // SL × NB × (v1, v2, τ)
-  T* v = v_in_smem ? rlog + (size_t)SL * NB * 3 : v_out;
+  Refl<T>* rlog = reinterpret_cast<Refl<T>*>(smem_raw);   // SL × NB reflectors
+  T* b = reinterpret_cast<T*>(rlog + (size_t)SL * NB);
+  T* v = v_in_smem ? b + (size_t)W * ld : v_out;
   const int ldv = v_in_smem ? ld : W;
   // steps logged, counted once per reflector warp
-  int& published = *reinterpret_cast<int*>(v_in_smem ? v + (size_t)W * ld
-                                                     : rlog + (size_t)SL * NB * 3);
+  int& published = *reinterpret_cast<int*>(b + (size_t)W * ld * (v_in_smem ? 2 : 1));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = blockDim.x >> 5;
@@ -198,10 +204,7 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       }
       House3<T> h = house3(p0, p1, k == s.hi - 2 ? T(0) : p2);
       if (!act) h.tau = T(0);
-      T* e = rlog + ((size_t)t * NB + i) * 3;
-      e[0] = h.v1;
-      e[1] = h.v2;
-      e[2] = h.tau;
+      rlog[(size_t)t * NB + i] = Refl<T>{h.v1, h.v2, h.tau, T(0)};
     };
     auto publish = [&]() {
       __threadfence_block();
@@ -219,8 +222,8 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
         const int k = s.k0 + t - 3 * i;
         const int kb = t + OFF - 3 * i;
         if (k >= s.lo && k <= s.hi - 2) {
-          const T* e = rlog + ((size_t)t * NB + i) * 3;
-          const T v1 = e[0], v2 = e[1], tau = e[2];
+          const Refl<T> e = rlog[(size_t)t * NB + i];
+          const T v1 = e.v1, v2 = e.v2, tau = e.tau;
           T x[3][3];
           for (int r = 0; r < 3; ++r)
             for (int j = 0; j < 3; ++j) x[r][j] = b[(kb + 1 + r) * ld + kb + j];
@@ -251,7 +254,7 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
     const int g = u / W, c = u % W;
     for (int t = 0; t < SL; ++t) {
       const int a = s.first(t), z = s.last(t);
-      const T* rl = rlog + (size_t)t * NB * 3;
+      const Refl<T>* rl = rlog + (size_t)t * NB;
       chain_sync(nchain);
       if (g < G) update_phase<T, true>(b, ld, rl, t, OFF, a, z, g, G, c);
       chain_sync(nchain);
@@ -267,13 +270,13 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       while (*(volatile int*)&published < need) __nanosleep(32);
       __threadfence_block();
       const int a = s.first(t), z = s.last(t);
-      const T* rl = rlog + (size_t)t * NB * 3;
+      const Refl<T>* rl = rlog + (size_t)t * NB;
       for (int i = a; i <= z; ++i) {
-        const T tau = rl[3 * i + 2];
+        const Refl<T> e = rl[i];
         const int kb = t + OFF - 3 * i;
-        if (tau == T(0) || kb > cmax || kb + 2 < cmin) continue;
+        if (e.tau == T(0) || kb > cmax || kb + 2 < cmin) continue;
         T x0 = vr[kb], x1 = vr[kb + 1], x2 = vr[kb + 2];
-        reflect3(x0, x1, x2, rl[3 * i], rl[3 * i + 1], tau);
+        reflect3(x0, x1, x2, e.v1, e.v2, e.tau);
         vr[kb] = x0;
         vr[kb + 1] = x1;
         vr[kb + 2] = x2;
@@ -288,10 +291,10 @@ bulge_chase_kernel(const T* __restrict__ b_in, const T* __restrict__ p_in,
       for (int c = lane; c < W; c += 32) v_out[r * W + c] = v[r * ld + c];
 }
 
-// Shared memory of a launch: B, the log of SL·NB reflectors, V_acc when
-// v_in_smem (W rows of ld each), and the log's counter.
+// Shared memory of a launch: the log of SL·NB reflectors (4 values each),
+// B, V_acc when v_in_smem (W rows of ld each), and the log's counter.
 size_t smem_need(int W, int NB, int SL, int ld, int v_in_smem, size_t elem) {
-  return elem * ((size_t)W * ld * (v_in_smem ? 2 : 1) + (size_t)SL * NB * 3) + 16;
+  return elem * ((size_t)W * ld * (v_in_smem ? 2 : 1) + (size_t)SL * NB * 4) + 16;
 }
 
 template <typename T>

@@ -25,23 +25,22 @@
 // the whole block and applies each 3-element reflector as a full-block
 // update, because Mosaic cannot index lanes: O(W²) work a step. Here the
 // block has two groups of warps, each W threads rounded up to whole warps
-// (ops/schur_small.py::plan):
-//   * the chain, thread j for column j and row j of T: a reflector touches
-//     three rows (thread j updates their column j) and three columns (thread
-//     j updates their row j), two named barriers (bar.sync 1) a step. Every
-//     thread rebuilds the reflector itself from three values that the
-//     threads owning those rows wrote to a small double-buffered array. A
-//     round's control is one pass: thread j sums column j's squares (a warp
-//     shuffle tree, then one value a warp for ‖T‖_F), tests subdiagonal j,
-//     and a ballot a warp gives every thread the window [lo, hi).
-//   * the accumulator, thread r for row r of Q: the chain logs each
-//     reflector and rotation it applies to T's columns in a ring in shared
-//     memory (a producer counter, one consumer counter a warp), and thread
-//     r applies them to its row in order, without barriers, skipping those
-//     whose columns lie outside the row's nonzero span (exact: zeros stay
-//     zero). The chain waits only when the ring is full.
-// T and Q have an odd leading dimension, so a warp reading one column (32
-// rows) hits 32 banks.
+// (ops/schur_small.py::plan), and a step is two phases between block
+// barriers:
+//   * T's group, thread j for column j and row j of T: in the first phase
+//     thread j applies the step's reflector to column j of T's three rows,
+//     in the second to row j of T's three columns. Every thread rebuilds
+//     the reflector itself from three values that the threads owning those
+//     rows wrote to a small double-buffered array.
+//   * Q's group, thread r for row r of Q: in the first phase, row r ← row·H
+//     (and the same for each 2×2 rotation), skipping a transform whose
+//     columns lie outside the row's nonzero span (exact: zeros stay zero).
+//     Q is thus off T's threads.
+// A round's control is one pass: thread j sums column j's squares (a warp
+// shuffle tree, then one value a warp for ‖T‖_F), tests subdiagonal j, and
+// a ballot a warp gives every thread the window [lo, hi). T and Q have an
+// odd leading dimension, so a warp reading one column (32 rows) hits 32
+// banks.
 //
 // Bound on the H100: neither bytes nor operations but the latency of the
 // step chain: each chase step is a few W flops behind two barriers, and the
@@ -51,7 +50,7 @@
 // columns of T's three rows, the (k + 4) rows of its three columns and the
 // nonzero rows of Q's three columns.
 //
-// Memory: T and the ring live in shared memory; Q too when all fit a
+// Memory: T lives in shared memory; Q too when both fit a
 // block's 227 KB (W = 128 in float32), otherwise Q is updated in place in
 // the output in global memory (float64 at W = 128), where it stays in L2.
 #include <cuda_runtime.h>
@@ -61,8 +60,6 @@ namespace {
 constexpr size_t kSmemMax = 232448;  // 227 KB, a Hopper block's maximum
 constexpr int kMaxW = 128;
 constexpr int kMaxWarps = kMaxW / 32;  // of each group
-constexpr int kRing = 256;             // ops/schur_small.py::RING
-constexpr int kChainBarrier = 1;       // named barrier of the chain
 
 template <typename T>
 __device__ __forceinline__ T eps_of();
@@ -118,47 +115,6 @@ __device__ __forceinline__ void rotate2(T* x0, T* x1, T cs, T sn) {
   *x1 = -sn * a + cs * b;
 }
 
-__device__ __forceinline__ void chain_sync(int nthreads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(kChainBarrier), "r"(nthreads) : "memory");
-}
-
-__device__ __forceinline__ int load_volatile(const int* p) {
-  return *reinterpret_cast<const volatile int*>(p);
-}
-
-// The ring of column transforms, produced by chain thread 0 and consumed by
-// every accumulator warp. Entry n: k ≥ 0 a reflector (v1, v2, τ) on columns
-// k..k+2; k < 0 a rotation (cs, sn) on columns −k−1, −k.
-template <typename T>
-struct Ring {
-  T* val;         // kRing × 3
-  int* col;       // kRing
-  int* head;      // entries published
-  int* done;      // set once the chain has logged its last entry
-  int* consumed;  // one counter a consumer warp
-  int nconsumers;
-
-  // chain thread 0 only; `seen` caches the slowest consumer's count
-  __device__ void push(int& n, int& seen, int k, T a, T b, T c) {
-    while (n - kRing >= seen) {   // slot n still holds entry n − kRing
-      int m = load_volatile(consumed);
-      for (int w = 1; w < nconsumers; ++w) {
-        const int x = load_volatile(consumed + w);
-        m = x < m ? x : m;
-      }
-      seen = m;
-      if (n - kRing >= seen) __nanosleep(64);
-    }
-    const int s = n & (kRing - 1);
-    col[s] = k;
-    val[3 * s] = a;
-    val[3 * s + 1] = b;
-    val[3 * s + 2] = c;
-    __threadfence_block();
-    *reinterpret_cast<volatile int*>(head) = ++n;
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(2 * kMaxW)
 schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict__ q_out,
@@ -168,237 +124,194 @@ schur_small_kernel(const T* __restrict__ a, T* __restrict__ t_out, T* __restrict
   T* t = reinterpret_cast<T*>(smem_raw);
   T* q = q_in_smem ? t + (size_t)W * ld : q_out + (size_t)blockIdx.x * W * W;
   const int ldq = q_in_smem ? ld : W;
-  T* ringv = q_in_smem ? q + (size_t)W * ld : t + (size_t)W * ld;   // kRing × 3
-  T* lk = ringv + 3 * kRing;         // W: 0/1 per subdiagonal position
-  T* red = lk + W;                   // a partial ‖T‖_F² per chain warp
+  T* lk = (q_in_smem ? q : t) + (size_t)W * ld;   // W: 0/1 per subdiagonal position
+  T* red = lk + W;                   // a partial ‖T‖_F² per T warp
   T* pbuf = red + kMaxWarps;         // 2 × 3: the next bulge column, by parity
-  int* ringk = reinterpret_cast<int*>(pbuf + 8);     // kRing
-  int* ballot = ringk + kRing;       // a live-subdiagonal mask per chain warp
-  int* ctl = ballot + kMaxWarps;     // head, done, consumed[kMaxWarps]
+  int* ballot = reinterpret_cast<int*>(pbuf + 8);    // a live mask per T warp
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nchain = 32 * nwarps;
+  const bool isq = warp >= nwarps;   // the Q group
+  const int j = isq ? tid - 32 * nwarps : tid;
+  const bool jt = !isq && j < W;     // thread j of T: column j, row j
+  const bool jq = isq && j < W;      // thread j of Q: row j
   const size_t off = (size_t)blockIdx.x * W * W;
   for (int r = warp; r < W; r += 2 * nwarps)
     for (int c = lane; c < W; c += 32) {
       t[r * ld + c] = a[off + r * W + c];
       q[r * ldq + c] = r == c ? T(1) : T(0);
     }
-  for (int j = tid; j < W; j += blockDim.x) lk[j] = T(0);
-  if (tid < 2 + kMaxWarps) ctl[tid] = 0;
+  for (int i = tid; i < W; i += blockDim.x) lk[i] = T(0);
   __syncthreads();
-  Ring<T> ring{ringv, ringk, ctl, ctl + 1, ctl + 2, nwarps};
 
-  if (warp < nwarps) {
-    // ---- the chain: thread j owns column j (row updates) and row j
-    const int j = tid;
-    const bool jc = j < W;
-    const T eps = eps_of<T>();
-    int n = 0, seen = 0;   // ring producer state (thread 0)
-    // T ← Gᵀ·T·G and the rotation logged, G = [[cs, −sn], [sn, cs]] at
-    // (k, k+1): rows, a barrier, columns, a barrier. With `zero`, T[k+1, k]
-    // is set to 0 instead (a standardised 2×2 block).
-    auto rotate = [&](int k, T cs, T sn, bool zero) {
-      if (jc) rotate2(&t[k * ld + j], &t[(k + 1) * ld + j], cs, sn);
-      if (j == 0) ring.push(n, seen, -k - 1, cs, sn, T(0));
-      chain_sync(nchain);
-      if (jc) {
-        rotate2(&t[j * ld + k], &t[j * ld + k + 1], cs, sn);
-        if (zero && j == k + 1) t[j * ld + k] = T(0);
+  const T eps = eps_of<T>();
+  // Q's row j ← row·G for each transform G of T's columns k.., skipping one
+  // outside the row's nonzero span [cmin, cmax]
+  int cmin = j, cmax = j;
+  T* qr = q + (size_t)j * ldq;
+  auto q_update = [&](int k, int width, T c0, T c1, T c2) {
+    if (!jq || k > cmax || k + width - 1 < cmin) return;
+    if (width == 3)
+      reflect3(qr + k, qr + k + 1, qr + k + 2, c0, c1, c2);
+    else
+      rotate2(qr + k, qr + k + 1, c0, c1);
+    cmin = k < cmin ? k : cmin;
+    cmax = k + width - 1 > cmax ? k + width - 1 : cmax;
+  };
+  // T ← Gᵀ·T·G and Q ← Q·G, G = [[cs, −sn], [sn, cs]] at (k, k+1): T's rows
+  // and Q, a barrier, T's columns, a barrier. With `zero`, T[k+1, k] is set
+  // to 0 instead (a standardised 2×2 block).
+  auto rotate = [&](int k, T cs, T sn, bool zero) {
+    if (jt) rotate2(&t[k * ld + j], &t[(k + 1) * ld + j], cs, sn);
+    q_update(k, 2, cs, sn, T(0));
+    __syncthreads();
+    if (jt) {
+      rotate2(&t[j * ld + k], &t[j * ld + k + 1], cs, sn);
+      if (zero && j == k + 1) t[j * ld + k] = T(0);
+    }
+    __syncthreads();
+  };
+  int it = 0, stuck = 0, hi_prev = -1;
+  while (hi_prev != 0 && it < max_iter) {
+    // ---- one pass: ‖T‖_F² by columns, and subdiagonal j
+    T ss = T(0);
+    if (jt)
+      for (int r = 0; r < W; ++r) {
+        const T x = t[r * ld + j];
+        ss += x * x;
       }
-      chain_sync(nchain);
-    };
-    int it = 0, stuck = 0, hi_prev = -1;
-    while (hi_prev != 0 && it < max_iter) {
-      // ---- one pass: ‖T‖_F² by columns, and subdiagonal j
-      T ss = T(0);
-      if (jc)
-        for (int r = 0; r < W; ++r) {
-          const T x = t[r * ld + j];
-          ss += x * x;
-        }
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      if (lane == 0) red[warp] = ss;
-      const bool js = j < W - 1;
-      T sub = T(0), d0 = T(0), d1 = T(0);
-      if (js) {
-        sub = t[(j + 1) * ld + j];
-        d0 = t[j * ld + j];
-        d1 = t[(j + 1) * ld + j + 1];
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (!isq && lane == 0) red[warp] = ss;
+    const bool js = jt && j < W - 1;
+    T sub = T(0), d0 = T(0), d1 = T(0);
+    if (js) {
+      sub = t[(j + 1) * ld + j];
+      d0 = t[j * ld + j];
+      d1 = t[(j + 1) * ld + j + 1];
+    }
+    __syncthreads();
+    T total = T(0);
+    for (int w = 0; w < nwarps; ++w) total += red[w];
+    const T floor = eps * sqrt(total);
+    bool live = false;
+    if (js) {
+      const T thr = T(16) * eps * (fabs(d0) + fabs(d1));
+      const bool me = lk[j] > T(0.5);
+      const bool nbr = (j > 0 && lk[j - 1] > T(0.5)) || lk[j + 1] > T(0.5);
+      if (fabs(sub) <= (thr > floor ? thr : floor) || (nbr && !me)) {
+        t[(j + 1) * ld + j] = T(0);
+        sub = T(0);
       }
-      chain_sync(nchain);
-      T total = T(0);
-      for (int w = 0; w < nwarps; ++w) total += red[w];
-      const T floor = eps * sqrt(total);
-      bool live = false;
-      if (js) {
-        const T thr = T(16) * eps * (fabs(d0) + fabs(d1));
-        const bool me = lk[j] > T(0.5);
-        const bool nbr = (j > 0 && lk[j - 1] > T(0.5)) || lk[j + 1] > T(0.5);
-        if (fabs(sub) <= (thr > floor ? thr : floor) || (nbr && !me)) {
-          t[(j + 1) * ld + j] = T(0);
-          sub = T(0);
-        }
-        live = !me && sub != T(0);
+      live = !me && sub != T(0);
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, live);
+    if (!isq && lane == 0) ballot[warp] = (int)mask;
+    __syncthreads();
+    // ---- the window: hi − 2 the last live subdiagonal, lo − 1 the last dead
+    // one below it
+    int hi = 0, lo = 0;
+    for (int w = nwarps - 1; w >= 0; --w) {
+      const unsigned m = (unsigned)ballot[w];
+      if (m) {
+        hi = 32 * w + 31 - __clz(m) + 2;
+        break;
       }
-      const unsigned mask = __ballot_sync(0xffffffffu, live);
-      if (lane == 0) ballot[warp] = (int)mask;
-      chain_sync(nchain);
-      // ---- the window: hi − 2 the last live subdiagonal, lo − 1 the last
-      // dead one below it
-      int hi = 0, lo = 0;
-      for (int w = nwarps - 1; w >= 0; --w) {
-        const unsigned m = (unsigned)ballot[w];
-        if (m) {
-          hi = 32 * w + 31 - __clz(m) + 2;
-          break;
-        }
+    }
+    for (int w = (hi - 2) >> 5; hi > 0 && w >= 0; --w) {
+      const int top = hi - 2 - 32 * w;   // bits 0..top−1 lie below hi − 2
+      const unsigned below = top >= 32 ? 0xffffffffu : ((1u << top) - 1u);
+      const unsigned dead = ~(unsigned)ballot[w] & below;
+      if (dead) {
+        lo = 32 * w + 31 - __clz(dead) + 1;
+        break;
       }
-      for (int w = (hi - 2) >> 5; hi > 0 && w >= 0; --w) {
-        const int top = hi - 2 - 32 * w;   // bits 0..top−1 lie below hi − 2
-        const unsigned below = top >= 32 ? 0xffffffffu : ((1u << top) - 1u);
-        const unsigned dead = ~(unsigned)ballot[w] & below;
-        if (dead) {
-          lo = 32 * w + 31 - __clz(dead) + 1;
-          break;
-        }
-      }
-      const bool size2 = hi - lo == 2;
-      if (hi > 0 && size2) {
-        const T aa = t[lo * ld + lo], bb = t[lo * ld + lo + 1];
-        const T cc = t[(lo + 1) * ld + lo], dd = t[(lo + 1) * ld + lo + 1];
-        const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
-        // every thread has read the block before the rotation rewrites it
-        chain_sync(nchain);
-        if (disc >= T(0)) {
-          // cancellation-free: λ−aa = −sgn(p)(|p|+sq), λ−dd = −sgn(p)·bc/(sq+|p|)
-          const T p = T(0.5) * (aa - dd);
-          const T sq = sqrt(disc > T(0) ? disc : T(0)) * T(0.5);
-          const T sgn = p >= T(0) ? T(1) : T(-1);
-          const T lam_m_aa = -sgn * (fabs(p) + sq);
-          const T den = sq + fabs(p);
-          const T lam_m_dd = -sgn * bb * cc / (den == T(0) ? T(1) : den);
-          const bool big_b = fabs(bb) >= fabs(cc);
-          T cs, sn;
-          rot2(big_b ? bb : lam_m_dd, big_b ? lam_m_aa : cc, &cs, &sn);
-          rotate(lo, cs, sn, true);
-        } else if (j == 0) {
-          lk[lo] = T(1);   // read after the next round's first barrier
-        }
-      } else if (hi > 0) {
-        const int m = hi - 2;
-        const T h_mm = t[m * ld + m], h_nn = t[(hi - 1) * ld + hi - 1];
-        const T h_mn = t[m * ld + hi - 1], h_nm = t[(hi - 1) * ld + m];
-        T tr = h_mm + h_nn;
-        T det = h_mm * h_nn - h_mn * h_nm;
-        if (stuck % 10 == 9) {   // exceptional shift (dlahqr)
-          const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * ld + m - 1]) : T(0));
-          const T lam = h_nn + T(0.75) * s_mag;
-          tr = T(2) * lam;
-          det = lam * lam;
-        }
-        const T h00 = t[lo * ld + lo], h01 = t[lo * ld + lo + 1];
-        const T h10 = t[(lo + 1) * ld + lo], h11 = t[(lo + 1) * ld + lo + 1];
-        const T h21 = t[(lo + 2) * ld + lo + 1];
-        T p0 = h00 * h00 + h01 * h10 - tr * h00 + det;
-        T p1 = h10 * (h00 + h11 - tr);
-        T p2 = h10 * h21;
-        chain_sync(nchain);   // every thread has read the seed before the rows move
-        for (int k = lo; k < hi - 2; ++k) {
-          const House3<T> h = house3(p0, p1, p2);
-          if (h.tau != T(0)) {
-            if (jc)
-              reflect3(&t[k * ld + j], &t[(k + 1) * ld + j], &t[(k + 2) * ld + j], h.v1,
-                       h.v2, h.tau);
-            if (j == 0) ring.push(n, seen, k, h.v1, h.v2, h.tau);
-          }
-          chain_sync(nchain);
-          T* nxt = pbuf + 3 * ((k - lo) & 1);
-          if (jc) {
-            T* row = t + j * ld + k;
-            if (h.tau != T(0)) reflect3(row, row + 1, row + 2, h.v1, h.v2, h.tau);
-            // the next bulge column T[k+1..k+3, k], from the rows' owners
-            if (j >= k + 1 && j <= k + 3) nxt[j - k - 1] = row[0];
-          }
-          chain_sync(nchain);
-          p0 = nxt[0];
-          p1 = nxt[1];
-          p2 = (k + 3 < hi) ? nxt[2] : T(0);
-        }
+    }
+    const bool size2 = hi - lo == 2;
+    if (hi > 0 && size2) {
+      const T aa = t[lo * ld + lo], bb = t[lo * ld + lo + 1];
+      const T cc = t[(lo + 1) * ld + lo], dd = t[(lo + 1) * ld + lo + 1];
+      const T disc = (aa - dd) * (aa - dd) + T(4) * bb * cc;
+      // every thread has read the block before the rotation rewrites it
+      __syncthreads();
+      if (disc >= T(0)) {
+        // cancellation-free: λ−aa = −sgn(p)(|p|+sq), λ−dd = −sgn(p)·bc/(sq+|p|)
+        const T p = T(0.5) * (aa - dd);
+        const T sq = sqrt(disc > T(0) ? disc : T(0)) * T(0.5);
+        const T sgn = p >= T(0) ? T(1) : T(-1);
+        const T lam_m_aa = -sgn * (fabs(p) + sq);
+        const T den = sq + fabs(p);
+        const T lam_m_dd = -sgn * bb * cc / (den == T(0) ? T(1) : den);
+        const bool big_b = fabs(bb) >= fabs(cc);
         T cs, sn;
-        rot2(p0, p1, &cs, &sn);
-        rotate(hi - 2, cs, sn, false);
+        rot2(big_b ? bb : lam_m_dd, big_b ? lam_m_aa : cc, &cs, &sn);
+        rotate(lo, cs, sn, true);
+      } else if (tid == 0) {
+        lk[lo] = T(1);   // read after the next round's first barrier
       }
-      if (hi > 0) stuck = size2 ? 0 : stuck + 1;
-      if (hi != hi_prev) stuck = 0;
-      hi_prev = hi;
-      ++it;
-    }
-    if (j == 0) {
-      it_out[blockIdx.x] = it;
-      __threadfence_block();
-      *reinterpret_cast<volatile int*>(ring.done) = 1;
-    }
-  } else {
-    // ---- the accumulator: thread r owns row r of Q
-    const int r = tid - nchain;
-    const int cw = warp - nwarps;
-    int cmin = r, cmax = r;   // the row's nonzeros lie in [cmin, cmax]
-    T* qr = q + (size_t)r * ldq;
-    int n = 0;
-    for (;;) {
-      // one read a warp, so that its lanes consume the same entries
-      int h = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.head) : 0, 0);
-      if (n == h) {
-        const int fin = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.done) : 0, 0);
-        if (!fin) {
-          __nanosleep(64);
-          continue;
+    } else if (hi > 0) {
+      const int m = hi - 2;
+      const T h_mm = t[m * ld + m], h_nn = t[(hi - 1) * ld + hi - 1];
+      const T h_mn = t[m * ld + hi - 1], h_nm = t[(hi - 1) * ld + m];
+      T tr = h_mm + h_nn;
+      T det = h_mm * h_nn - h_mn * h_nm;
+      if (stuck % 10 == 9) {   // exceptional shift (dlahqr)
+        const T s_mag = fabs(h_nm) + (m >= 1 ? fabs(t[m * ld + m - 1]) : T(0));
+        const T lam = h_nn + T(0.75) * s_mag;
+        tr = T(2) * lam;
+        det = lam * lam;
+      }
+      const T h00 = t[lo * ld + lo], h01 = t[lo * ld + lo + 1];
+      const T h10 = t[(lo + 1) * ld + lo], h11 = t[(lo + 1) * ld + lo + 1];
+      const T h21 = t[(lo + 2) * ld + lo + 1];
+      T p0 = h00 * h00 + h01 * h10 - tr * h00 + det;
+      T p1 = h10 * (h00 + h11 - tr);
+      T p2 = h10 * h21;
+      __syncthreads();   // every thread has read the seed before the rows move
+      for (int k = lo; k < hi - 2; ++k) {
+        const House3<T> h = house3(p0, p1, p2);
+        if (h.tau != T(0)) {
+          if (jt)
+            reflect3(&t[k * ld + j], &t[(k + 1) * ld + j], &t[(k + 2) * ld + j], h.v1, h.v2,
+                     h.tau);
+          q_update(k, 3, h.v1, h.v2, h.tau);
         }
-        // done was set after the last push: head is final
-        h = __shfl_sync(0xffffffffu, lane == 0 ? load_volatile(ring.head) : 0, 0);
-        if (n == h) break;
-      }
-      __threadfence_block();
-      for (; n < h; ++n) {
-        const int s = n & (kRing - 1);
-        const int k = ringk[s];
-        const T* e = ringv + 3 * s;
-        if (r >= W) continue;
-        if (k >= 0) {
-          if (k > cmax || k + 2 < cmin) continue;
-          reflect3(qr + k, qr + k + 1, qr + k + 2, e[0], e[1], e[2]);
-          cmin = k < cmin ? k : cmin;
-          cmax = k + 2 > cmax ? k + 2 : cmax;
-        } else {
-          const int c = -k - 1;
-          if (c > cmax || c + 1 < cmin) continue;
-          rotate2(qr + c, qr + c + 1, e[0], e[1]);
-          cmin = c < cmin ? c : cmin;
-          cmax = c + 1 > cmax ? c + 1 : cmax;
+        __syncthreads();
+        T* nxt = pbuf + 3 * ((k - lo) & 1);
+        if (jt) {
+          T* row = t + j * ld + k;
+          if (h.tau != T(0)) reflect3(row, row + 1, row + 2, h.v1, h.v2, h.tau);
+          // the next bulge column T[k+1..k+3, k], from the rows' owners
+          if (j >= k + 1 && j <= k + 3) nxt[j - k - 1] = row[0];
         }
+        __syncthreads();
+        p0 = nxt[0];
+        p1 = nxt[1];
+        p2 = (k + 3 < hi) ? nxt[2] : T(0);
       }
-      __syncwarp();
-      if (lane == 0) {
-        __threadfence_block();
-        *reinterpret_cast<volatile int*>(ring.consumed + cw) = n;
-      }
+      T cs, sn;
+      rot2(p0, p1, &cs, &sn);
+      rotate(hi - 2, cs, sn, false);
     }
+    if (hi > 0) stuck = size2 ? 0 : stuck + 1;
+    if (hi != hi_prev) stuck = 0;
+    hi_prev = hi;
+    ++it;
   }
+  if (tid == 0) it_out[blockIdx.x] = it;
   __syncthreads();
   for (int r = warp; r < W; r += 2 * nwarps)
     for (int c = lane; c < W; c += 32) {
       t_out[off + r * W + c] = t[r * ld + c];
       if (q_in_smem) q_out[off + r * W + c] = q[r * ld + c];
     }
-  for (int j = tid; j < W; j += blockDim.x) lk_out[(size_t)blockIdx.x * W + j] = lk[j];
+  for (int i = tid; i < W; i += blockDim.x) lk_out[(size_t)blockIdx.x * W + i] = lk[i];
 }
 
 // Shared memory of a launch: T and, when q_in_smem, Q (W rows of ld each),
-// the ring, the locks, the reductions' scratch and the counters.
+// the locks, the reductions' scratch, the next bulge column and the
+// ballots.
 size_t smem_need(int W, int ld, int q_in_smem, size_t elem) {
-  return elem * ((size_t)W * ld * (q_in_smem ? 2 : 1) + 3 * kRing + W + kMaxWarps + 8) +
-         sizeof(int) * (kRing + 2 * kMaxWarps + 2);
+  return elem * ((size_t)W * ld * (q_in_smem ? 2 : 1) + W + kMaxWarps + 8) +
+         sizeof(int) * kMaxWarps;
 }
 
 template <typename T>

@@ -23,10 +23,11 @@ from . import _build
 __all__ = ["bulge_chase_steps", "bulge_chase_steps_ref", "plan"]
 
 # warps of one launch at most (csrc/bulge_chase.cu kMaxThreads / 32)
-MAX_WARPS = 20
+MAX_WARPS = 24
 # row or column items an update warp's thread takes in one phase of a step,
-# which sets how many update warps a slide gets (at most 8)
+# which sets how many update warps a slide gets (at most MAX_UPDATE)
 UPDATE_ITEMS = 4
+MAX_UPDATE = 16
 
 # Kernel launches since the last reset; only bulge_chase_steps' CUDA branch
 # adds to it, one per call (one call is one slide of ``sl`` steps).
@@ -42,10 +43,11 @@ def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
     ld = W rounded up to an odd number, the leading dimension of B and
     V_acc in shared memory (a column of 32 rows then hits 32 banks). One
     reflector warp for each 32 bulges; one accumulator thread for each row
-    of V_acc; update warps enough for one thread a column and, up to 8, for
-    UPDATE_ITEMS items a thread and phase (NB·W items). B and the
-    reflector log (SL·NB·3 values) always sit in shared memory, V_acc too
-    when all fit 227 KB, else it is updated in place in global memory.
+    of V_acc; update warps enough for one thread a column and, up to
+    MAX_UPDATE and to the MAX_WARPS of the launch, for UPDATE_ITEMS items
+    a thread and phase (NB·W items). B and the reflector log (SL·NB·4
+    values) always sit in shared memory, V_acc too when all fit 227 KB,
+    else it is updated in place in global memory.
     Raises ValueError where the kernel cannot run: sl + 3·NB > W, B and the
     log over 227 KB, or more than MAX_WARPS warps.
     """
@@ -56,8 +58,9 @@ def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
     ld = W | 1
     nref = -(-NB // 32)
     nacc = -(-W // 32)
-    nupd = max(nacc, min(8, -(-NB * W // (32 * UPDATE_ITEMS))))
-    core = elem * (W * ld + SL * NB * 3) + 16
+    nupd = max(nacc, min(MAX_UPDATE, -(-NB * W // (32 * UPDATE_ITEMS)),
+                         MAX_WARPS - nref - nacc))
+    core = elem * (W * ld + SL * NB * 4) + 16
     v_in_smem = core + elem * W * ld <= _build.SMEM_MAX
     smem = core + (elem * W * ld if v_in_smem else 0)
     if smem > _build.SMEM_MAX or nref + nupd + nacc > MAX_WARPS:

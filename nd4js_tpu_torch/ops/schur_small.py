@@ -24,9 +24,8 @@ from . import _build
 __all__ = ["MAX_W", "blocks_per_sm", "plan", "schur_small", "schur_small_ref"]
 
 MAX_W = 128        # widest block the kernel takes
-# entries of the kernel's log of column transforms (csrc/schur_small.cu
-# kRing), and the most warps of each of its two groups
-RING = 256
+# the most warps of each of the kernel's two groups (csrc/schur_small.cu
+# kMaxWarps)
 MAX_WARPS = MAX_W // 32
 
 # Kernel launches since the last reset; only schur_small's CUDA branch adds
@@ -158,19 +157,18 @@ def plan(W: int, dtype: torch.dtype):
     group, Q in shared memory, shared-memory bytes a block).
 
     ld = W rounded up to an odd number, the leading dimension of T and Q
-    in shared memory (a column of 32 rows then hits 32 banks). The chain
-    and the Q accumulator each get W threads rounded up to whole warps. T,
-    the ring of RING transforms, the locks and the scratch always sit in
-    shared memory, Q too when all fit 227 KB, else it is updated in place
-    in global memory. Raises ValueError for W outside 1..MAX_W.
+    in shared memory (a column of 32 rows then hits 32 banks). T's group
+    and Q's group each get W threads rounded up to whole warps. T, the
+    locks and the scratch always sit in shared memory, Q too when both fit
+    227 KB, else it is updated in place in global memory. Raises ValueError
+    for W outside 1..MAX_W.
     """
     if not 1 <= W <= MAX_W:
         raise ValueError(f"schur_small: needs 1 <= W <= {MAX_W}, got {W}")
     elem = torch.finfo(dtype).bits // 8
     ld = W | 1
     nwarps = -(-W // 32)
-    core = elem * (W * ld + 3 * RING + W + MAX_WARPS + 8) \
-        + 4 * (RING + 2 * MAX_WARPS + 2)
+    core = elem * (W * ld + W + MAX_WARPS + 8) + 4 * MAX_WARPS
     q_in_smem = core + elem * W * ld <= _build.SMEM_MAX
     return ld, nwarps, q_in_smem, core + (elem * W * ld if q_in_smem else 0)
 

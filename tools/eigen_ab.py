@@ -2,7 +2,7 @@
 """Time bulge_chase_steps and schur_small, and the general eigen paths
 around them, in one or more checkouts of the repository on one card.
 
-    python3 tools/eigen_ab.py [--check] ROOT [ROOT ...]
+    python3 tools/eigen_ab.py [--check] [--no-walls] [--out FILE] ROOT ...
 
 Each ROOT is a directory that holds ``nd4js_tpu_torch/`` and
 ``chip_smoke.py`` (the repository itself, ``.``, or a ``git archive`` of
@@ -25,8 +25,10 @@ from that root's own ``chip_smoke.py``, at config 4's shapes:
   ``eigen`` of the (256, 64, 64) batch.
 
 With ``--check`` a process first runs that root's ``chip_smoke.py``
-phase-2 checks of the two kernels in float32 and float64. One JSON line
-per root, each beside the card's name and power limit.
+phase-2 checks of the two kernels in float32 and float64 (a failed check
+prints its line and fails the root); ``--no-walls`` times the kernels
+only. One JSON line per root, each beside the card's name and power limit,
+on standard output and appended to FILE (default build/eigen_ab.jsonl).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def chase_steps(moves) -> int:
     return sum(hi - lo - 2 for lo, hi in moves if hi - lo > 2)
 
 
-def child(root: str, check: bool) -> dict:
+def child(root: str, check: bool, walls: bool) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -59,9 +61,11 @@ def child(root: str, check: bool) -> dict:
                                if p.stem in KEEP]
     _build._SIGNATURES = {k: v for k, v in _build._SIGNATURES.items()
                           if any(s in k for s in KEEP)}
-    _, seconds, _ = _build.build()
+    _, seconds, log = _build.build()
     schur_mod = importlib.import_module("nd4js_tpu_torch.la.schur")
     out = {"root": root, "build_s": seconds,
+           "ptxas": [ln.strip() for ln in log.splitlines()
+                     if "Compiling" in ln or "Used" in ln or "spill" in ln],
            "card": cs.run_tool(["nvidia-smi", "--query-gpu=name,power.limit",
                                 "--format=csv,noheader"]).splitlines()[0]}
     if check:
@@ -94,7 +98,7 @@ def child(root: str, check: bool) -> dict:
         out[f"{key}_steps"] = steps
         out[f"{key}_step_ms"] = out[f"{key}_ms"] / steps
     _, bal = la.eigen_balance_pre(s)
-    out["walls"] = {
+    out["walls"] = {} if not walls else {
         "config 4 eigen (1024, 1024)": cs.wall_ms(
             lambda: la.eigen(s, split=True)),
         "schur_decomp (1024, 1024)": cs.wall_ms(lambda: la.schur_decomp(bal)),
@@ -109,29 +113,38 @@ def child(root: str, check: bool) -> dict:
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        print("EIGEN_AB " + json.dumps(child(args[1], args[2] == "1")),
-              flush=True)
+        print("EIGEN_AB " + json.dumps(child(args[1], args[2] == "1",
+                                             args[3] == "1")), flush=True)
         return
-    check = "--check" in args
-    roots = [a for a in args if a != "--check"] or ["."]
+    out = os.path.join("build", "eigen_ab.jsonl")
+    if "--out" in args:
+        out = args.pop(args.index("--out") + 1)
+    flags = {"--check", "--no-walls", "--out"}
+    roots = [a for a in args if a not in flags] or ["."]
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     failed = 0
     for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", root, "1" if check else "0"],
-                              capture_output=True, text=True, timeout=900)
-        lines = proc.stdout.splitlines()
-        res = [ln[len("EIGEN_AB "):] for ln in lines
-               if ln.startswith("EIGEN_AB ")]
-        if proc.returncode or not res:
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", root,
+               str(int("--check" in args)), str(int("--no-walls" not in args))]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+            lines = proc.stdout.splitlines()
+            res = [ln[len("EIGEN_AB "):] for ln in lines
+                   if ln.startswith("EIGEN_AB ")]
+            if proc.returncode or not res:
+                res = [json.dumps({"root": root, "rc": proc.returncode,
+                                   "fails": [ln for ln in lines
+                                             if "FAIL" in ln],
+                                   "tail": (proc.stdout
+                                            + proc.stderr)[-3000:]})]
+                failed += 1
+        except subprocess.TimeoutExpired:
+            res = [json.dumps({"root": root, "rc": "timeout after 300 s"})]
             failed += 1
-            print(json.dumps({"root": root, "rc": proc.returncode,
-                              "tail": (proc.stdout + proc.stderr)[-3000:]}),
-                  flush=True)
-            continue
-        for ln in lines:
-            if not ln.startswith("EIGEN_AB ") and ("FAIL" in ln or "ok " in ln):
-                print(ln, flush=True)
         print(res[0], flush=True)
+        with open(out, "a") as f:
+            f.write(res[0] + "\n")
     sys.exit(1 if failed else 0)
 
 
