@@ -33,7 +33,8 @@ Phases, each announced by a flushed line at its start and its end:
    gates;
 4. times with CUDA events: each kernel, its plain version, one PyTorch
    library call that computes the same function where there is one, and
-   the bound; and the wall time of each bench.py entry above, the eigh
+   the bound (for bulge_chase_steps and schur_small also ms a dependent
+   step); and the wall time of each bench.py entry above, the eigh
    paths beside ``torch.linalg.eigh``, the SVD paths beside
    ``torch.linalg.svd`` and the eigen paths beside ``torch.linalg.eig``
    on the same input (yardsticks the port never calls), with a host
@@ -151,11 +152,14 @@ SCHUR_SAMPLE = 8
 # stays orders of magnitude under the O(1) gap of a wrong column.
 TREVC_C = 8
 
-# wall ms of the general eigen paths with the kernels bulge_chase_steps and
-# schur_small had before their redesign for Hopper: the range over the
-# parent's runs of tools/eigen_ab.py beside the redesign's, on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md §6, PR 10)
-WALLS_BEFORE = {}
+# wall ms of the general eigen paths with bulge_chase_steps and
+# schur_small as they were before their redesign for Hopper (commit
+# c32ef3c): the range over six runs of tools/eigen_ab.py on that tree, in
+# turns with the redesign's, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md §6)
+WALLS_BEFORE = {"config 4 eigen (1024, 1024)": "2908.9-4266.3",
+                "schur_decomp (1024, 1024)": "2699.3-4223.8",
+                "eigen (256, 64, 64)": "96.2-137.8"}
 
 _T0 = time.perf_counter()
 _phase = "start"
@@ -1169,7 +1173,7 @@ def chase_layout(W, nb, sl, dtype) -> str:
 
 def schur_layout(W, dtype) -> str:
     ld, nwarps, q_sm, smem = ss.plan(W, dtype)
-    return (f"ld {ld}, warps {nwarps} chain + {nwarps} accumulator, Q in "
+    return (f"ld {ld}, warps {nwarps} for T + {nwarps} for Q, Q in "
             f"{'shared' if q_sm else 'global'} memory, {smem} B")
 
 
@@ -2135,7 +2139,7 @@ def main():
     for what, runs in wall.items():
         say(f"{what} float32 wall ms, {len(runs)} runs: "
             + ", ".join(f"{w:.3f}" for w in runs)
-            + (f"; with PR 9's bulge_chase_steps and schur_small "
+            + (f"; before the redesign of bulge_chase_steps and schur_small "
                f"{WALLS_BEFORE[what]}" if what in WALLS_BEFORE else ""))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

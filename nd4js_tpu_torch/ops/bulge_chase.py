@@ -48,8 +48,8 @@ def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
     a thread and phase (NB·W items). B and the reflector log (SL·NB·4
     values) always sit in shared memory, V_acc too when all fit 227 KB,
     else it is updated in place in global memory.
-    Raises ValueError where the kernel cannot run: sl + 3·NB > W, B and the
-    log over 227 KB, or more than MAX_WARPS warps.
+    Raises ValueError where the kernel cannot run: sl + 3·NB > W, or B and
+    the log over 227 KB (which also keeps the warps within MAX_WARPS).
     """
     if W < 4 or NB < 1 or SL < 0 or SL + 3 * NB > W:
         raise ValueError(f"bulge_chase_steps: needs W >= 4, NB >= 1 and "
@@ -63,11 +63,10 @@ def plan(W: int, NB: int, SL: int, dtype: torch.dtype):
     core = elem * (W * ld + SL * NB * 4) + 16
     v_in_smem = core + elem * W * ld <= _build.SMEM_MAX
     smem = core + (elem * W * ld if v_in_smem else 0)
-    if smem > _build.SMEM_MAX or nref + nupd + nacc > MAX_WARPS:
+    if smem > _build.SMEM_MAX:
         raise ValueError(f"bulge_chase_steps: a ({W}, {W}) block with {NB} "
-                         f"bulges over {SL} steps does not fit one block "
-                         f"({smem} bytes of shared memory, "
-                         f"{nref + nupd + nacc} warps) in {dtype}")
+                         f"bulges over {SL} steps needs {smem} bytes of "
+                         f"shared memory in {dtype}")
     return ld, nref, nupd, nacc, v_in_smem, smem
 
 
