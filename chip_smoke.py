@@ -30,15 +30,20 @@ Phases, each announced by a flushed line at its start and its end:
    batch and config 4's ``eigh(method="via_svd")``; then config 4's
    general ``eigen`` of one 1024² matrix, ``schur_decomp`` of its balanced
    form and ``eigen`` of a (256, 64, 64) batch, each held to bench.py's
-   gates;
-4. times with CUDA events: each kernel, its plain version, one PyTorch
+   gates; every launch of those paths is logged (its shapes and
+   arguments) beside the counters;
+4. times with CUDA events: each distinct launch of the log, once, on the
+   arguments it was first given, and so each kernel's device time over
+   the main path; each kernel, its plain version, one PyTorch
    library call that computes the same function where there is one, and
    the bound (for bulge_chase_steps and schur_small also ms a dependent
    step); and the wall time of each bench.py entry above, the eigh
    paths beside ``torch.linalg.eigh``, the SVD paths beside
    ``torch.linalg.svd`` and the eigen paths beside ``torch.linalg.eig``
-   on the same input (yardsticks the port never calls), with a host
-   breakdown of config 4's eigen.
+   on the same input (yardsticks the port never calls), with host
+   breakdowns of the headline and of config 4's eigen; sytrd_panel's
+   column loop and trailing update apart, by cluster size; house_panel
+   with and without the column-major scratch.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -93,6 +98,10 @@ BACKWARD_MULT = 8
 KERNELS = ("house_panel", "qr_gesv", "house_stripe_t", "chol_leaf",
            "lu_panel", "lu_gesv", "sytrd_panel", "jacobi_sweeps",
            "rrqr_kernel", "schur_small", "bulge_chase_steps", "trevc_solve")
+# house_panel's shapes: the headline's four panels, the entry's (4, 128,
+# 128) and lstsq's pre-QR (1024, 128, 64)
+HOUSE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
+                (32, 128, 128), (4, 128, 128), (1024, 128, 64))
 # house_stripe_t's shapes: the headline's four panels, a batch of 128²,
 # B not a multiple of 8, and (one size per type) the global regime
 STRIPE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
@@ -298,18 +307,35 @@ def phase2_qr(rng, errs):
     # checks after this one draw from `rng` the inputs they drew before the
     # stripe checks were added, so their printed gaps compare across runs
     extra = np.random.default_rng(SEED + 1)
+    lstsq_rng = np.random.default_rng(SEED + 11)
     for dtype in (torch.float32, torch.float64):
-        for shape in ((32, 512, 128), (32, 384, 128), (32, 256, 128),
-                      (32, 128, 128), (4, 128, 128)):
-            a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
-            got = hp.house_panel(a)
+        for shape in HOUSE_SHAPES:
+            # lstsq's panel from a generator of its own, for the same reason
+            src = lstsq_rng if shape == HOUSE_SHAPES[-1] else rng
+            a = torch.from_numpy(src.standard_normal(shape)).to(DEVICE, dtype)
             want = hp.house_panel_ref(a)
-            err = max(maxabs(g - w) for g, w in zip(got, want))
             tol = TOL[dtype] * maxabs(a)
-            if dtype == torch.float32:
-                errs["house_panel"] = max(errs["house_panel"], err)
-            check(err <= tol, f"house_panel {shape} {dtype}: max |kernel - "
-                  f"plain| over R, V, taus = {err:.3e} <= {tol:.3e}")
+            plan = hs.stripe_plan(a)
+            for c, sh in stripe_regimes(a):
+                before = hp.launches
+                got = hp._house_panel_in(a, c, sh)
+                err = max(maxabs(g - w) for g, w in zip(got, want))
+                if dtype == torch.float32:
+                    errs["house_panel"] = max(errs["house_panel"], err)
+                check(hp.launches == before + 1 and err <= tol,
+                      f"house_panel {shape} {dtype} ({hs.regime(c, sh)}"
+                      f"{', the plan' if (c, sh) == plan else ''}): one "
+                      f"launch; max |kernel - plain| over R, V, taus = "
+                      f"{err:.3e} <= {tol:.3e}")
+            # the shared regime reads the panel itself; the same launch
+            # through the column-major scratch, as a transposed view takes
+            if plan[1]:
+                got = hs._stripe_panel(a, *plan, "house_panel", False)
+                err = max(maxabs(g - w) for g, w in zip(got, want))
+                check(err <= tol, f"house_panel {shape} {dtype} "
+                      f"({hs.regime(*plan)}, through the scratch): max "
+                      f"|kernel - plain| over R, V, taus = {err:.3e} <= "
+                      f"{tol:.3e}")
         # the last batch is shifted by 3·√N·I: κ₂ ≈ 3, so there the fixed
         # tolerance on x holds for every system
         for nb, n, k, shift in ((1, 256, 4, 0), (64, 128, 1, 0),
@@ -344,6 +370,20 @@ def phase2_qr(rng, errs):
         phase2_stripe(extra, errs, dtype)
 
 
+def stripe_regimes(panel):
+    """Every (cluster size, shared) that ``hs.stripe_plan`` may give a
+    panel of this shape and dtype: the shared regime at each cluster size
+    that holds it, the plan's own, and the global regime at the plan's
+    cluster size."""
+    nb, m, b = panel.shape
+    nstripes = -(-min(m, b) // hs.STRIPE)
+    plan = hs.stripe_plan(panel)
+    out = [(c, True) for c in hs.CLUSTER_SIZES
+           if c <= nstripes and hs.smem_bytes(m, b, min(m, b), 0, c, True,
+                                              panel.dtype) <= _build.SMEM_MAX]
+    return sorted(set(out) | {plan, (plan[0], False)})
+
+
 def gesv_check(what, a, y, dtype, errs, cluster=None, shared=None):
     """qr_gesv's kernel against its plain version by solve_check, in the
     plan's regime or the one given; prints which ran."""
@@ -364,7 +404,8 @@ def phase2_stripe(rng, errs, dtype):
     """house_stripe_t against its plain version on R, V and taus within
     TOL·max|A|, at the headline's panels, (4, 128, 128), B not a multiple
     of 8 and the global regime, a zero column in the first matrix (τ = 0);
-    at (32, 512, 128) also against house_panel's kernel as a drop-in."""
+    at (32, 512, 128) also against house_panel's plain version, the
+    drop-in contract of the JAX package's tests/test_qr.py:119-135."""
     for shape in STRIPE_SHAPES + (STRIPE_GLOBAL[dtype],):
         a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
         a[0, :, shape[-1] // 2] = 0
@@ -381,9 +422,10 @@ def phase2_stripe(rng, errs, dtype):
               f"{what}: max |kernel - plain| over R, V, taus = {err:.3e} <= "
               f"{tol:.3e}; τ = 0 on the zero column")
         if shape == STRIPE_SHAPES[0]:
-            err = max(maxabs(g - w) for g, w in zip(got, hp.house_panel(a)))
-            check(err <= tol, f"{what}: max |house_stripe_t - house_panel| "
-                  f"(both kernels) over R, V, taus = {err:.3e} <= {tol:.3e}")
+            err = max(maxabs(g - w)
+                      for g, w in zip(got, hp.house_panel_ref(a)))
+            check(err <= tol, f"{what}: max |house_stripe_t - house_panel's "
+                  f"plain version| over R, V, taus = {err:.3e} <= {tol:.3e}")
 
 
 def spd_garbage_above(rng, nb, n):
@@ -528,51 +570,81 @@ def panel_backward_error(c, out, bk):
 
 
 def phase2_sytrd(rng, errs):
-    for what, c, bk in (
+    """sytrd_panel against its plain version in the plan's launch, and on
+    every cluster size its plan can choose in each dtype: config 4's
+    (1, 1024, 1024) on each size that places it (3-16 in float32, 6-16 in
+    float64), the smaller ones on (3, 100, 100) in float64 and the τ = 0
+    blocks in float32."""
+    every = None  # every cluster size that places the panel
+    # the inputs of the float32 (1, 1024, 1024) and (3, 100, 100) come first
+    # from `rng`, as before the cluster sizes were added
+    for what, c, bk, sizes in (
             ("(1, 1024, 1024)", torch.from_numpy(symmetric(
-                rng, (1, 1024, 1024))).to(DEVICE, torch.float32), 64),
-            ("Gram (32, 512, 512)", gram(rng, (32, 512, 512)), 64),
+                rng, (1, 1024, 1024))).to(DEVICE, torch.float32), 64, every),
+            ("Gram (32, 512, 512)", gram(rng, (32, 512, 512)), 64, ()),
             ("(3, 100, 100)", torch.from_numpy(symmetric(
-                rng, (3, 100, 100))).to(DEVICE), 63),
+                rng, (3, 100, 100))).to(DEVICE), 63, (1, 2, 3, 4, 5)),
             ("τ = 0 (2, 96, 96)", torch.from_numpy(tau_zero_blocks(
-                rng, 2, 96)).to(DEVICE, torch.float32), 63),
+                rng, 2, 96)).to(DEVICE, torch.float32), 63, (1, 2)),
             ("τ = 0 (2, 96, 96)", torch.from_numpy(tau_zero_blocks(
-                rng, 2, 96)).to(DEVICE), 63)):
-        dtype = c.dtype
-        what = f"sytrd_panel {what} {dtype} bk={bk}"
-        got = sp.sytrd_panel(c, bk)
+                rng, 2, 96)).to(DEVICE), 63, ()),
+            ("(1, 1024, 1024)", torch.from_numpy(symmetric(
+                np.random.default_rng(SEED + 12), (1, 1024, 1024))).to(DEVICE),
+             64, every),
+            ("Gram (32, 512, 512)", gram(np.random.default_rng(SEED + 13),
+                                         (32, 512, 512)).double(), 64, ())):
         want = sp.sytrd_panel_ref(c, bk)
-        m = c.shape[-1]
-        cmax = maxabs(c)
-        unit = SYTRD_C * torch.finfo(dtype).eps * m
-        worst = 0.0
-        for name, g, w, scale in zip(
-                ("C_trailing", "V", "W", "taus", "d", "e"), got, want,
-                (cmax, 1.0, cmax, 1.0, cmax, cmax)):
-            err = maxabs(g - w)
-            worst = max(worst, err / scale)
-            check(tuple(g.shape) == tuple(w.shape) and err <= unit * scale,
-                  f"{what}: max |{name} - plain| = {err:.3e} <= "
-                  f"{unit * scale:.3e}")
-            if dtype == torch.float32:
-                errs["sytrd_panel"] = max(errs["sytrd_panel"], err)
-        check(torch.equal(got[0], got[0].mT),
-              f"{what}: trailing block exactly symmetric")
-        resid, orth = panel_backward_error(c, got, bk)
-        eps = torch.finfo(dtype).eps
-        check(resid <= BACKWARD_C * eps * m * cmax
-              and orth <= BACKWARD_C * eps * m,
-              f"{what}: max |Hᵀ·C·H - T| = {resid:.3e} <= "
-              f"{BACKWARD_C * eps * m * cmax:.3e}, max |HᵀH - I| = "
-              f"{orth:.3e} <= {BACKWARD_C * eps * m:.3e}")
-        say(f"{what}: worst error {worst / unit * SYTRD_C:.3f} eps·m "
-            f"(·max|C| where it scales), the tolerance {SYTRD_C}")
-        if "τ = 0" in what:
-            h = m // 2 - 1
-            check(maxabs(got[3][:, :h]) == 0.0 and torch.equal(
-                got[5][:, :h], torch.diagonal(c, -1, 1, 2)[:, :h]),
-                f"{what}: τ = 0 and e = the subdiagonal on the first {h} "
-                "columns")
+        nb, m, _ = c.shape
+        plan = sp.card_plan(nb, m, bk, c.dtype, c.device)
+        if sizes is every:
+            sizes = sp.placeable_sizes(m, bk, c.dtype)
+        for cluster in sorted(set(sizes) | {plan[0]}):
+            launch = sp.plan(nb, m, bk, c.dtype, cluster=cluster)
+            sytrd_check(f"sytrd_panel {what} {c.dtype} bk={bk} ("
+                        f"{sp.regime(*launch, m)}"
+                        f"{', the plan' if launch == plan else ''})", c, bk,
+                        launch, want, errs)
+
+
+def sytrd_check(what, c, bk, launch, want, errs):
+    """One sytrd_panel launch against the plain version's ``want``: every
+    output within SYTRD_C·eps·m (·max|C|), the trailing block exactly
+    symmetric, the panel's contract, and τ = 0 where the input asks."""
+    dtype = c.dtype
+    before = sp.launches
+    got = sp._sytrd_panel_in(c, bk, launch)
+    check(sp.launches == before + 1, f"{what}: one launch")
+    m = c.shape[-1]
+    cmax = maxabs(c)
+    unit = SYTRD_C * torch.finfo(dtype).eps * m
+    worst = 0.0
+    for name, g, w, scale in zip(
+            ("C_trailing", "V", "W", "taus", "d", "e"), got, want,
+            (cmax, 1.0, cmax, 1.0, cmax, cmax)):
+        err = maxabs(g - w)
+        worst = max(worst, err / scale)
+        check(tuple(g.shape) == tuple(w.shape) and err <= unit * scale,
+              f"{what}: max |{name} - plain| = {err:.3e} <= "
+              f"{unit * scale:.3e}")
+        if dtype == torch.float32:
+            errs["sytrd_panel"] = max(errs["sytrd_panel"], err)
+    check(torch.equal(got[0], got[0].mT),
+          f"{what}: trailing block exactly symmetric")
+    resid, orth = panel_backward_error(c, got, bk)
+    eps = torch.finfo(dtype).eps
+    check(resid <= BACKWARD_C * eps * m * cmax
+          and orth <= BACKWARD_C * eps * m,
+          f"{what}: max |Hᵀ·C·H - T| = {resid:.3e} <= "
+          f"{BACKWARD_C * eps * m * cmax:.3e}, max |HᵀH - I| = "
+          f"{orth:.3e} <= {BACKWARD_C * eps * m:.3e}")
+    say(f"{what}: worst error {worst / unit * SYTRD_C:.3f} eps·m "
+        f"(·max|C| where it scales), the tolerance {SYTRD_C}")
+    if "τ = 0" in what:
+        h = m // 2 - 1
+        check(maxabs(got[3][:, :h]) == 0.0 and torch.equal(
+            got[5][:, :h], torch.diagonal(c, -1, 1, 2)[:, :h]),
+            f"{what}: τ = 0 and e = the subdiagonal on the first {h} "
+            "columns")
 
 
 def regime_name(small: bool) -> str:
@@ -707,7 +779,56 @@ def square_solve_gate(a, x, y, what, where="bench.py:362"):
           f"({where})")
 
 
+# the wrapper each C function of the kernel library belongs to, where a
+# launch does not name it itself
+KERNEL_OF = {"chol_leaf": "chol_leaf", "lu_panel": "lu_panel",
+             "lu_gesv": "lu_gesv", "qr_gesv": "qr_gesv",
+             "sytrd_panel": "sytrd_panel", "jacobi_sweeps": "jacobi_sweeps",
+             "rrqr": "rrqr_kernel", "schur_small": "schur_small",
+             "bulge_chase": "bulge_chase_steps", "trevc_solve": "trevc_solve"}
+
+
+class LaunchLog:
+    """The main path's launches, recorded through the kernel library's hook
+    (``_build.recorder``) between reset_counts and read_counts: how often
+    each distinct launch ran (its kernel, C function, the shapes and dtypes
+    of its tensors and its scalar arguments), and a copy of the first one's
+    arguments, so that phase 4 can time each distinct launch once on the
+    data the main path gave it."""
+
+    def __init__(self):
+        self.count, self.pending, self.first = {}, {}, {}
+
+    def __call__(self, kernel, fn_name, device, args):
+        name = kernel or KERNEL_OF[fn_name.removeprefix("nd4js_")[:-4]]
+        key = (name, fn_name, str(device), tuple(
+            (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
+            else a for a in args))
+        if key not in self.first:
+            self.first[key] = (device, [a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args])
+        self.pending[key] = self.pending.get(key, 0) + 1
+
+    def reset(self) -> None:
+        self.pending.clear()
+
+    def commit(self) -> None:
+        for key, n in self.pending.items():
+            self.count[key] = self.count.get(key, 0) + n
+        self.pending.clear()
+
+    def launches(self) -> dict:
+        out = dict.fromkeys(KERNELS, 0)
+        for key, n in self.count.items():
+            out[key[0]] += n
+        return out
+
+
+LOG = LaunchLog()
+
+
 def reset_counts() -> None:
+    LOG.reset()
     hp.launches = hs.launches = hs.stripe_launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
     sp.launches = js.launches = rk.launches = 0
@@ -719,6 +840,7 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
+    LOG.commit()
     return {"house_panel": hp.launches, "qr_gesv": hs.launches,
             "house_stripe_t": hs.stripe_launches, "chol_leaf": cl.launches,
             "lu_panel": lp.launches["lu_panel"],
@@ -739,6 +861,18 @@ def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
 
 def phase3(gen):
     totals = dict.fromkeys(KERNELS, 0)
+    _build.recorder = LOG
+    try:
+        out = phase3_paths(gen, totals)
+    finally:
+        _build.recorder = None
+    LOG.reset()
+    check(LOG.launches() == totals, "the launch log agrees with the counters: "
+          f"{len(LOG.count)} distinct launches")
+    return out
+
+
+def phase3_paths(gen, totals):
 
     reset_counts()
     forward, (a, y) = entry(device=DEVICE)
@@ -1874,6 +2008,107 @@ def stripe_breakdown(a) -> dict:
     return out
 
 
+def house_breakdown(a) -> dict:
+    """house_panel on the headline's four panel shapes in the plan's
+    regime: the call (the shared regime loads the row-major panel
+    straight into its slabs), the same through the column-major scratch,
+    the kernel alone on a scratch built once (the shared regime leaves it
+    as it was) and the scratch copy alone."""
+    out = {"panels": []}
+    for k in range(0, 512, 128):
+        p = a[:, k:, k:k + 128].contiguous()
+        nb, m, b = p.shape
+        c, sh = hs.stripe_plan(p)
+        work = hs._panel_scratch(p)
+        t = {"shape": [nb, m, b], "plan": hs.regime(c, sh),
+             "ms": cuda_ms(lambda: hp.house_panel(p), 10),
+             "through_scratch_ms": cuda_ms(lambda: hs._stripe_panel(
+                 p, c, sh, "house_panel", False), 10),
+             "kernel_on_scratch_ms": cuda_ms(lambda: hs._launch_panel(
+                 work, m, b, c, sh, "house_panel"), 10),
+             "scratch_ms": cuda_ms(lambda: hs._panel_scratch(p), 10)}
+        out["panels"].append(t)
+        say(f"house_panel ({nb}, {m}, {b}) float32 ({t['plan']}): call "
+            f"{t['ms']:.4f} ms; through the scratch {t['through_scratch_ms']:.4f}"
+            f" ms, of it the kernel {t['kernel_on_scratch_ms']:.4f} ms and "
+            f"the copy {t['scratch_ms']:.4f} ms "
+            f"({100 * t['scratch_ms'] / t['through_scratch_ms']:.1f}%)")
+    return out
+
+
+def sytrd_breakdown(c4, cg) -> dict:
+    """sytrd_panel's column loop and trailing update apart (stages 1 and
+    2), at config 4's first panel and the Gram batch's, in the plan's
+    launch and on every cluster size that places the panel."""
+    out = {"split": {}, "clusters": {}}
+    bk = 64
+    for what, c in (("(1, 1024, 1024)", c4), ("Gram (32, 512, 512)", cg)):
+        nb, m, _ = c.shape
+        bufs = (c.new_empty((nb, m - bk, m - bk)), c.new_empty((nb, bk, m)),
+                c.new_empty((nb, bk, m)), c.new_empty((nb, bk)),
+                c.new_empty((nb, bk)), c.new_empty((nb, bk)))
+        plans = [sp.card_plan(nb, m, bk, c.dtype, c.device)]
+        plans += [sp.plan(nb, m, bk, c.dtype, cluster=cl)
+                  for cl in sp.placeable_sizes(m, bk, c.dtype)]
+        for i, plan in enumerate(plans):
+            sp._launch(c, *bufs, plan)   # V and W for the update alone
+            t = {"plan": sp.regime(*plan, m),
+                 "ms": cuda_ms(lambda: sp._launch(c, *bufs, plan), 10),
+                 "column_loop_ms": cuda_ms(
+                     lambda: sp._launch(c, *bufs, plan, 1), 10),
+                 "update_ms": cuda_ms(lambda: sp._launch(c, *bufs, plan, 2),
+                                      10)}
+            t["step_us"] = 1e3 * t["column_loop_ms"] / bk
+            t["resident_clusters"] = sp.resident_clusters(plan, c.dtype)
+            if i == 0:
+                out["split"][what] = t
+            else:
+                out["clusters"].setdefault(what, {})[plan[0]] = t
+            say(f"sytrd_panel {what} bk={bk} float32 ({t['plan']}, the card "
+                f"holds {t['resident_clusters']} such clusters at once"
+                f"{', the plan' if i == 0 else ''}): launch {t['ms']:.4f} ms,"
+                f" column loop alone {t['column_loop_ms']:.4f} ms "
+                f"({t['step_us']:.3f} µs a step), trailing update alone "
+                f"{t['update_ms']:.4f} ms")
+    return out
+
+
+def launch_totals() -> dict:
+    """Each distinct launch of the main path (LOG) timed once on the
+    arguments it was first given, restored before every run (a kernel may
+    work in place), less the restore; each kernel's device ms over the
+    main path is the sum over its distinct launches of count × ms."""
+    per = {k: {"main_path_ms": 0.0, "main_path_launches": 0,
+               "main_path_distinct": 0} for k in KERNELS}
+    for key, n in LOG.count.items():
+        name, fn_name = key[:2]
+        device, saved = LOG.first[key]
+        work = [a.clone() if isinstance(a, torch.Tensor) else a
+                for a in saved]
+        pairs = [(w, a) for w, a in zip(work, saved)
+                 if isinstance(a, torch.Tensor)]
+
+        def restore(pairs=pairs):
+            for w, a in pairs:
+                w.copy_(a)
+
+        def run(fn_name=fn_name, device=device, work=work, restore=restore):
+            restore()
+            _build.launch(fn_name, device, *work)
+
+        ms = cuda_ms(run, 3) - cuda_ms(restore, 3)
+        row = per[name]
+        row["main_path_ms"] += n * ms
+        row["main_path_launches"] += n
+        row["main_path_distinct"] += 1
+    for name, row in per.items():
+        say(f"{name}: {row['main_path_launches']} launches on the main path, "
+            f"{row['main_path_distinct']} distinct, "
+            f"{row['main_path_ms']:.4f} ms of device time in all (each "
+            "distinct launch timed once)")
+    return per
+
+
 def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     a, _ = batch
     a1, y1 = cfg1
@@ -1915,7 +2150,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     rk_flops, rk_bytes = rrqr_cost(spd2)
     rows = []
     for name, src, repl, kern, plain, lib, flops, nbytes, shape in (
-            ("house_panel", "nd4js_tpu_torch/csrc/house_panel.cu",
+            ("house_panel", "nd4js_tpu_torch/csrc/house_stripe.cu",
              "nd4js_tpu/ops/house_panel.py:71",
              lambda: hp.house_panel(panel), lambda: hp.house_panel_ref(panel),
              lambda: torch.geqrf(panel), hp_flops, hp_bytes,
@@ -1980,6 +2215,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     by_name = {row["name"]: row for row in rows}
     by_name["qr_gesv"].update(gesv_breakdown(a3, y3))
     by_name["house_stripe_t"].update(stripe_breakdown(a))
+    by_name["house_panel"].update(house_breakdown(a))
+    by_name["sytrd_panel"].update(sytrd_breakdown(c4, cg))
     # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
     # config 3's Rᵀ (one launch a round), rrqr_kernel at the 512² batch
     a3, _ = svd_in["cfg3"]
@@ -2002,6 +2239,9 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
         say(f"{name} {shape}: kernel {other['ms']:.4f} ms, plain "
             f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
     rows += eigen_rows(counts, errs, *geig)
+    main = launch_totals()
+    for row in rows:
+        row.update(main[row["name"]])
 
     a, y = batch
 
@@ -2072,6 +2312,13 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
            (tridiag_dc, "_base_eigh", "of which Jacobi leaves"),
            (tridiag_dc, "_merge", "merges")]
     eig_top = ("sytrd", "tridiag_eigh_dc")
+    # the headline: its house_panel launches, the T of each panel (host
+    # loops of small ops), Q formation and the rest (trailing GEMMs, solve)
+    qr_parts = [(qr_mod, "house_panel", "house_panel"),
+                (qr_mod, "_form_t_batched", "T of the panels"),
+                (qr_mod, "_apply_q_batched", "Q formation")]
+    host_breakdown("qr_decomp + qr_lstsq (32, 512, 512)", headline, qr_parts,
+                   [name for _, name, _ in qr_parts])
     for what, fn, parts, top in (
             ("svd_decomp (32, 512, 512)", lambda: la.svd_decomp(a), gram,
              gram_top),

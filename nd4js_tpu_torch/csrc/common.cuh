@@ -1,9 +1,13 @@
-// Shared device helpers of the nd4js_tpu_torch kernels: a block-wide sum
-// and the Householder reflector of one column, with the sign and zero rules
-// of nd4js_tpu/ops/house_panel.py:43-53.
+// Shared helpers of the nd4js_tpu_torch kernels: a block-wide sum, the
+// Householder reflector of one column, with the sign and zero rules of
+// nd4js_tpu/ops/house_panel.py:43-53, and the launch of a kernel on
+// thread-block clusters.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 namespace nd4js {
 
@@ -43,66 +47,102 @@ __device__ Reflector<T> make_reflector(T x0, T sigma) {
   return h;
 }
 
-// Apply H = I - tau·v·vᵀ, v held in shared `v` (rows j..m-1, v[j] = 1), to
-// columns c0..ncols-1 of the row-major (m, ld) matrix `a`, rows j..m-1:
-//   w_c = tau · Σ_i v_i·a_ic ;  a_ic -= v_i·w_c.
-// `part` is shared scratch of at least max(blockDim.x, ncols - c0) values,
-// `w` of at least ncols - c0. Threads cover columns fastest, so each row's
-// loads and stores are contiguous. Contains __syncthreads().
-template <typename T>
-__device__ void apply_reflector(T* a, int ld, int m, int j, int c0, int ncols,
-                                const T* v, T tau, T* part, T* w) {
-  const int nc = ncols - c0;
-  if (nc <= 0) return;
-  const int groups = blockDim.x >= nc ? blockDim.x / nc : 1;
-  for (int idx = threadIdx.x; idx < groups * nc; idx += blockDim.x) {
-    const int g = idx / nc;
-    const int c = c0 + idx % nc;
-    T s = T(0);
-    for (int i = j + g; i < m; i += groups) s += v[i] * a[(size_t)i * ld + c];
-    part[idx] = s;
-  }
-  __syncthreads();
-  for (int cc = threadIdx.x; cc < nc; cc += blockDim.x) {
-    T s = T(0);
-    for (int g = 0; g < groups; ++g) s += part[g * nc + cc];
-    w[cc] = tau * s;
-  }
-  __syncthreads();
-  const size_t total = (size_t)(m - j) * nc;
-  for (size_t idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int i = j + (int)(idx / nc);
-    const int cc = (int)(idx % nc);
-    a[(size_t)i * ld + c0 + cc] -= v[i] * w[cc];
-  }
-  __syncthreads();
+// Shared memory one block may ask for on Hopper (227 KB).
+constexpr int kSmemMax = 232448;
+// What launch_clusters returns when no part of the card can hold one cluster.
+constexpr int kCannotPlace = -2;
+
+// Launch configurations already checked by cudaOccupancyMaxActiveClusters,
+// which costs far more host time than the launch itself: (kernel, device,
+// threads, cluster size, shared memory) of each, with the answer.
+struct Placed {
+  const void* kernel;
+  int device, threads, csize;
+  size_t smem;
+  int clusters;
+};
+
+inline std::mutex& placed_lock() {
+  static std::mutex lock;
+  return lock;
 }
 
-// Householder step j on the row-major (m, ld) matrix `a`: form the
-// reflector of column j (rows j..m-1) into shared `v` (v[i] for i >= j),
-// apply it to columns j+1..ncols-1, and leave beta on the diagonal and
-// zeros below it in column j. Returns the reflector (the same in every
-// thread). `red` is shared scratch of one value per warp.
-template <typename T>
-__device__ Reflector<T> householder_step(T* a, int ld, int m, int j, int ncols,
-                                         T* v, T* red, T* part, T* w) {
-  T s = T(0);
-  for (int i = j + 1 + threadIdx.x; i < m; i += blockDim.x) {
-    const T x = a[(size_t)i * ld + j];
-    v[i] = x;
-    s += x * x;
+inline std::vector<Placed>& placed() {
+  static std::vector<Placed> seen;
+  return seen;
+}
+
+// Clusters of `csize` blocks of `threads` threads, each block with `smem`
+// bytes of dynamic shared memory, that the card holds at once (through
+// `clusters`), from cudaOccupancyMaxActiveClusters; remembered per kernel,
+// device and configuration. The first check of a kernel on a device also
+// lifts its shared-memory limit to 227 KB and, for clusters above the
+// portable 8 blocks, allows those. Returns a CUDA error.
+template <typename Kernel>
+int active_clusters(Kernel kernel, int threads, int csize, size_t smem, int* clusters) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> hold(placed_lock());
+    for (const Placed& p : placed())
+      if (p.kernel == (const void*)kernel && p.device == device && p.threads == threads &&
+          p.csize == csize && p.smem == smem) {
+        *clusters = p.clusters;
+        return (int)cudaSuccess;
+      }
   }
-  const T sigma = block_sum(s, red);   // syncs: v[] is complete after it
-  const T x0 = a[(size_t)j * ld + j];
-  const Reflector<T> h = make_reflector(x0, sigma);
-  for (int i = j + 1 + threadIdx.x; i < m; i += blockDim.x) v[i] /= h.den;
-  if (threadIdx.x == 0) v[j] = T(1);
-  __syncthreads();
-  apply_reflector(a, ld, m, j, j + 1, ncols, v, h.tau, part, w);
-  for (int i = j + threadIdx.x; i < m; i += blockDim.x)
-    a[(size_t)i * ld + j] = i == j ? h.beta : T(0);
-  __syncthreads();
-  return h;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (e != cudaSuccess) return (int)e;
+  if (csize > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)csize);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(placed_lock());
+  placed().push_back({(const void*)kernel, device, threads, csize, smem, *clusters});
+  return (int)cudaSuccess;
+}
+
+// One launch of `kernel` as `blocks` blocks of `threads` threads, in
+// clusters of `csize` blocks, each block with `smem` bytes of dynamic shared
+// memory, on `stream`. Returns a CUDA error, or kCannotPlace when no part of
+// the card can hold one cluster with its shared memory.
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, int blocks, int threads, int csize, size_t smem, void* stream,
+                    Args... args) {
+  int clusters = 0;
+  const int rc = active_clusters(kernel, threads, csize, smem, &clusters);
+  if (rc != 0) return rc;
+  if (clusters < 1) return kCannotPlace;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace nd4js

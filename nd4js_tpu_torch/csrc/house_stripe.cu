@@ -3,7 +3,13 @@
 //
 // Replaces the TPU kernels nd4js_tpu/ops/house_stripe.py::house_stripe_t
 // (_house_stripe_kernel) and nd4js_tpu/ops/house_stripe.py::qr_gesv
-// (_qr_gesv_kernel), both over _house_stripe_body. Same contracts:
+// (_qr_gesv_kernel), both over _house_stripe_body, and, through the same
+// panel launches, nd4js_tpu/ops/house_panel.py::house_panel
+// (_house_panel_kernel), whose contract house_stripe_t meets as a drop-in
+// (the JAX package's tests/test_qr.py:119-135). Its first port, one block
+// of 512 threads a matrix with 128 dependent rank-1 steps each reading the
+// trailing panel twice from L2, took 3.3066 ms at (32, 512, 128) where this
+// body takes 0.29 (NVIDIA H100 80GB HBM3, 700 W). Same contracts:
 //   house_stripe_t: panel (Nb, M, B) -> R_panel, V, taus in house_panel's
 //     natural layout (house_stripe.py:311-319): R on and above the diagonal,
 //     V unit-diagonal below it, a column with tau = 0 keeps only its unit
@@ -29,11 +35,11 @@
 // the cluster size by a rule it states; the launcher checks that a cluster
 // can be placed. The scratch the wrapper passes is column-major per matrix: groups
 // of 8 columns of M rows; qr_gesv's right-hand sides start at group N/8
-// (rounded up), after zero columns.
+// (rounded up), after zero columns. In the shared regime a row-major
+// contiguous panel needs no scratch: the slabs load it straight (rowmajor),
+// which saves the copy that took 9-19 % of a house_panel call at the
+// headline's shapes (chip_smoke.py, phase 4).
 #include <cuda_runtime.h>
-
-#include <mutex>
-#include <vector>
 
 #include "house_stripe.cuh"
 
@@ -167,65 +173,11 @@ house_stripe_kernel(T* work, T* r, T* v, T* tau, Shape sh, int b) {
   write_panel(cx, r + off, v + off, tau + (size_t)mat * b, b);
 }
 
-// Shared memory one block may ask for on Hopper (227 KB).
-constexpr int kSmemMax = 232448;
-
-// Configurations already checked by cudaOccupancyMaxActiveClusters, which
-// costs far more host time than the launch itself: (kernel, device, shared
-// memory, threads, cluster size) of each, with the answer. The first check
-// of a kernel on a device also lifts its shared-memory limit to 227 KB.
-struct Placed {
-  const void* kernel;
-  int device, threads, csize;
-  size_t smem;
-  int clusters;
-};
-std::mutex placed_lock;
-std::vector<Placed> placed;
-
 // One launch of `kernel` over nb matrices, a cluster of sh.csize blocks each.
-// Returns a CUDA error, or kCannotPlace when no part of the card can hold
-// one cluster with its shared memory.
 template <typename T, typename Kernel, typename... Args>
-int launch_clusters(Kernel kernel, const Shape& sh, int nb, void* stream, Args... args) {
-  const size_t smem = smem_plan(sh).total * sizeof(T);
-  const int threads = block_threads(sh.m);
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nb * sh.csize));
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)sh.csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = -1;
-  {
-    std::lock_guard<std::mutex> hold(placed_lock);
-    for (const Placed& p : placed)
-      if (p.kernel == (const void*)kernel && p.device == device && p.threads == threads &&
-          p.csize == sh.csize && p.smem == smem)
-        clusters = p.clusters;
-  }
-  if (clusters < 0) {
-    if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    std::lock_guard<std::mutex> hold(placed_lock);
-    placed.push_back({(const void*)kernel, device, threads, sh.csize, smem, clusters});
-  }
-  if (clusters < 1) return kCannotPlace;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+int launch_stripe(Kernel kernel, const Shape& sh, int nb, void* stream, Args... args) {
+  return nd4js::launch_clusters(kernel, nb * sh.csize, block_threads(sh.m), sh.csize,
+                                smem_plan(sh).total * sizeof(T), stream, args...);
 }
 
 Shape gesv_shape(int n, int k, int csize, int shared) {
@@ -238,6 +190,7 @@ Shape gesv_shape(int n, int k, int csize, int shared) {
   sh.ktail = k;
   sh.csize = csize;
   sh.shared = shared;
+  sh.rowmajor = 0;
   return sh;
 }
 
@@ -251,6 +204,7 @@ Shape panel_shape(int m, int b, int csize, int shared) {
   sh.ktail = 0;
   sh.csize = csize;
   sh.shared = shared;
+  sh.rowmajor = 0;
   return sh;
 }
 
@@ -259,19 +213,21 @@ int gesv(T* work, T* x, int nb, int n, int k, int csize, int shared, int stages,
   if (nb == 0 || n == 0 || k == 0) return (int)cudaSuccess;
   const Shape sh = gesv_shape(n, k, csize, shared);
   if (shared)
-    return launch_clusters<T>(qr_gesv_kernel<T, true>, sh, nb, stream, work, x, sh, n, k, stages);
-  return launch_clusters<T>(qr_gesv_kernel<T, false>, sh, nb, stream, work, x, sh, n, k, stages);
+    return launch_stripe<T>(qr_gesv_kernel<T, true>, sh, nb, stream, work, x, sh, n, k, stages);
+  return launch_stripe<T>(qr_gesv_kernel<T, false>, sh, nb, stream, work, x, sh, n, k, stages);
 }
 
 template <typename T>
-int panel(T* work, T* r, T* v, T* tau, int nb, int m, int b, int csize, int shared,
+int panel(T* work, T* r, T* v, T* tau, int nb, int m, int b, int csize, int shared, int rowmajor,
           void* stream) {
   if (nb == 0 || m == 0 || b == 0) return (int)cudaSuccess;
-  const Shape sh = panel_shape(m, b, csize, shared);
+  if (rowmajor && !shared) return (int)cudaErrorInvalidValue;
+  Shape sh = panel_shape(m, b, csize, shared);
+  sh.rowmajor = rowmajor ? b : 0;
   if (shared)
-    return launch_clusters<T>(house_stripe_kernel<T, true>, sh, nb, stream, work, r, v, tau, sh,
+    return launch_stripe<T>(house_stripe_kernel<T, true>, sh, nb, stream, work, r, v, tau, sh,
                               b);
-  return launch_clusters<T>(house_stripe_kernel<T, false>, sh, nb, stream, work, r, v, tau, sh,
+  return launch_stripe<T>(house_stripe_kernel<T, false>, sh, nb, stream, work, r, v, tau, sh,
                             b);
 }
 
@@ -289,14 +245,16 @@ int nd4js_qr_gesv_f64(double* work, double* x, int nb, int n, int k, int csize, 
   return gesv<double>(work, x, nb, n, k, csize, shared, stages, stream);
 }
 
+// rowmajor 1: `work` is the row-major panel itself (the shared regime only),
+// 0: the column-major scratch.
 int nd4js_house_stripe_t_f32(float* work, float* r, float* v, float* tau, int nb, int m, int b,
-                             int csize, int shared, void* stream) {
-  return panel<float>(work, r, v, tau, nb, m, b, csize, shared, stream);
+                             int csize, int shared, int rowmajor, void* stream) {
+  return panel<float>(work, r, v, tau, nb, m, b, csize, shared, rowmajor, stream);
 }
 
 int nd4js_house_stripe_t_f64(double* work, double* r, double* v, double* tau, int nb, int m,
-                             int b, int csize, int shared, void* stream) {
-  return panel<double>(work, r, v, tau, nb, m, b, csize, shared, stream);
+                             int b, int csize, int shared, int rowmajor, void* stream) {
+  return panel<double>(work, r, v, tau, nb, m, b, csize, shared, rowmajor, stream);
 }
 
 // Shared memory (bytes) one block of a launch asks for: the wrapper's plan
@@ -313,6 +271,7 @@ size_t nd4js_house_stripe_smem(int m, int ncols, int nhouse, int ktail, int csiz
   sh.ktail = ktail;
   sh.csize = csize;
   sh.shared = shared;
+  sh.rowmajor = 0;
   return st::smem_plan(sh).total * (size_t)elem;
 }
 

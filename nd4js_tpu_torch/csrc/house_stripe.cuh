@@ -44,7 +44,6 @@ constexpr int kW = 8;              // stripe width
 constexpr int kRows = 4;           // rows a lane loads before it stores
 constexpr int kMaxThreads = 512;
 constexpr int kMaxFactorWarps = kMaxThreads / 128;
-constexpr int kCannotPlace = -2;   // no SM group can hold one cluster
 
 // One matrix's elimination and the cluster that runs it (host and device).
 struct Shape {
@@ -56,6 +55,8 @@ struct Shape {
   int ktail;     // right-hand sides of the back substitution (0: none)
   int csize;     // cluster size
   int shared;    // 1: the shared regime, 0: the global regime
+  int rowmajor;  // shared regime only: 0, or the columns of a row-major
+                 // (m, rowmajor) panel that the slabs load straight
 };
 
 __host__ __device__ inline int stripes_of(const Shape& sh, int b) {
@@ -707,11 +708,25 @@ __device__ void eliminate(Ctx<T, kShared>& cx) {
   }
 }
 
-// Copy this block's groups from the caller's column-major scratch (groups
-// of 8 columns of m rows) into its slab (the shared regime only).
+// Copy this block's groups into its slab (the shared regime only): from the
+// caller's column-major scratch (groups of 8 columns of m rows), or, where
+// sh.rowmajor = b, straight from the row-major (m, b) panel, zero columns
+// past b (8 threads a row's 8 columns, so a warp reads 4 rows' 32 bytes).
 template <typename T>
 __device__ void load_slab(Ctx<T, true>& cx, const T* work, int mat) {
-  const int m = cx.sh.m;
+  const int m = cx.sh.m, b = cx.sh.rowmajor;
+  if (b > 0) {
+    const T* src = work + (size_t)mat * m * b;
+    for (int q = 0; q < cx.nslots; ++q) {
+      const int c0 = cx.group_of_slot(q) * kW;
+      T* dst = cx.store + (size_t)q * kW * cx.ld;
+      for (int idx = threadIdx.x; idx < kW * m; idx += blockDim.x) {
+        const int i = idx >> 3, k = idx & 7;
+        dst[(size_t)k * cx.ld + i] = c0 + k < b ? src[(size_t)i * b + c0 + k] : T(0);
+      }
+    }
+    return;
+  }
   const T* src = work + (size_t)mat * cx.sh.ngroups * kW * m;
   for (int q = 0; q < cx.nslots; ++q) {
     const T* g = src + (size_t)cx.group_of_slot(q) * kW * m;

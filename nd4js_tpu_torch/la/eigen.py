@@ -7,6 +7,8 @@ at once) with the factors snapped to powers of two, so that it is exact.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import default_float_for
@@ -45,7 +47,9 @@ def _balance_core(a, p: int = 2):
 
 @batched((2,))
 def _balance(a, p: int):
-    d, b = _balance_core(a.reshape((-1,) + a.shape[-2:]), p)
+    # an explicit batch size: a 0×0 matrix leaves -1 nothing to infer
+    d, b = _balance_core(a.reshape((math.prod(a.shape[:-2]),) + a.shape[-2:]),
+                         p)
     return d.reshape(a.shape[:-1]), b.reshape(a.shape)
 
 

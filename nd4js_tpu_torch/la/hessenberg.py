@@ -10,6 +10,8 @@ no kernel here.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import default_float_for
@@ -133,7 +135,8 @@ def _hessenberg_core(a):
 
 @batched((2,))
 def _hessenberg(a):
-    a3 = a.reshape((-1,) + a.shape[-2:])
+    # an explicit batch size: a 0×0 matrix leaves -1 nothing to infer
+    a3 = a.reshape((math.prod(a.shape[:-2]),) + a.shape[-2:])
     h, q = _hessenberg_core(a3)
     return q.reshape(a.shape), h.reshape(a.shape)
 

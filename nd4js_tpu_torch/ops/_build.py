@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["NVCC_FLAGS", "SMEM_MAX", "build", "check_operand", "launch",
-           "library"]
+           "library", "recorder"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -44,19 +44,18 @@ _P, _I, _D, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
 _SIGNATURES = {
     "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _P]),
     "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
-    "nd4js_house_panel_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "nd4js_house_panel_f64": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "nd4js_qr_gesv_f32": (_I, [_P, _P] + [_I] * 6 + [_P]),
     "nd4js_qr_gesv_f64": (_I, [_P, _P] + [_I] * 6 + [_P]),
-    "nd4js_house_stripe_t_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-    "nd4js_house_stripe_t_f64": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    "nd4js_house_stripe_t_f32": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+    "nd4js_house_stripe_t_f64": (_I, [_P] * 4 + [_I] * 6 + [_P]),
     "nd4js_house_stripe_smem": (ctypes.c_size_t, [_I] * 7),
     "nd4js_lu_panel_f32": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_panel_f64": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
     "nd4js_lu_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
-    "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I, _I, _I, _P]),
-    "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I, _I, _I, _P]),
+    "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "nd4js_sytrd_panel_clusters": (_I, [_I] * 4),
     "nd4js_jacobi_sweeps_f32": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
@@ -72,6 +71,11 @@ _SIGNATURES = {
 
 _built = None
 _lib = None
+
+# None, or a function that :func:`launch` calls as recorder(kernel, fn_name,
+# device, args) before each launch (``chip_smoke.py`` records the main
+# path's launches with it, to time each distinct one in isolation).
+recorder = None
 
 
 def _nvcc() -> str:
@@ -164,10 +168,13 @@ def check_operand(t, name: str, ndim: int):
     return True
 
 
-def launch(fn_name: str, device, *args):
+def launch(fn_name: str, device, *args, kernel: str | None = None):
     """Call the C function ``fn_name`` with ``args`` (tensors are passed
     as pointers) and the current stream of ``device``; raise if it
-    reports a CUDA error."""
+    reports a CUDA error. ``kernel`` names the wrapper for the
+    ``recorder`` where two share a C function."""
+    if recorder is not None:
+        recorder(kernel, fn_name, device, args)
     lib = library()
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):

@@ -1,6 +1,8 @@
-"""Householder QR panel factorisation: the CUDA kernel
-``csrc/house_panel.cu`` (the port of ``nd4js_tpu/ops/house_panel.py``),
-its plain PyTorch version, and a launch counter.
+"""Householder QR panel factorisation (the port of
+``nd4js_tpu/ops/house_panel.py``): on the card the stripe-WY body of
+``csrc/house_stripe.cuh``, through the kernel ``house_stripe_t`` launches
+(``ops.house_stripe``), its plain PyTorch version, and a launch counter of
+its own.
 
 Outputs (R_panel, V, taus) of a batched panel (Nb, M, B): R_panel's top
 rows are the R block (zeros below), V holds unit-diagonal reflectors
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, house_stripe
 
 __all__ = ["house_panel", "house_panel_ref", "householder_step"]
 
@@ -59,20 +61,25 @@ def house_panel_ref(panel: torch.Tensor):
 def house_panel(panel: torch.Tensor):
     """Householder-factor a batched panel (Nb, M, B) → (R_panel, V, taus).
 
-    A CUDA tensor runs the kernel (or raises); a CPU tensor runs
+    A CUDA tensor runs the stripe-WY body in the regime and cluster size
+    of ``house_stripe.stripe_plan`` (or raises); a CPU tensor runs
     :func:`house_panel_ref`.
     """
-    global launches
     if not _build.check_operand(panel, "house_panel", 3):
         return house_panel_ref(panel)
     if not panel.is_contiguous():
         raise ValueError("house_panel: the panel must be contiguous")
-    nb, m, b = panel.shape
-    f64 = panel.dtype == torch.float64
-    r = torch.empty_like(panel)
-    V = torch.empty_like(panel)
-    taus = panel.new_empty((nb, b))
-    _build.launch("nd4js_house_panel_f64" if f64 else "nd4js_house_panel_f32",
-                  panel.device, panel, r, V, taus, nb, m, b)
+    if 0 in panel.shape:
+        nb, _, b = panel.shape
+        return panel.clone(), torch.zeros_like(panel), panel.new_zeros((nb, b))
+    return _house_panel_in(panel, *house_stripe.stripe_plan(panel))
+
+
+def _house_panel_in(panel: torch.Tensor, cluster: int, shared: bool):
+    """:func:`house_panel` on a contiguous CUDA panel in the given regime
+    and cluster size (the card's checks run every one); one that does not
+    fit raises."""
+    global launches
+    out = house_stripe._stripe_panel(panel, cluster, shared, "house_panel")
     launches += 1
-    return r, V, taus
+    return out

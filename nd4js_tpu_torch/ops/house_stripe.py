@@ -285,16 +285,48 @@ def _house_stripe_t_in(panel: torch.Tensor, cluster: int, shared: bool):
     cluster size (the card's checks run every one); one that does not fit
     raises."""
     global stripe_launches
+    out = _stripe_panel(panel, cluster, shared, "house_stripe_t")
+    stripe_launches += 1
+    return out
+
+
+def _stripe_panel(panel: torch.Tensor, cluster: int, shared: bool,
+                  kernel: str, direct: bool | None = None):
+    """The stripe body's panel kernel on a CUDA panel → (R_panel, V, taus),
+    uncounted (``kernel`` names the wrapper, which counts). ``direct``
+    (the default in the shared regime for a contiguous panel) has the
+    slabs load the row-major panel itself; otherwise the kernel reads the
+    column-major scratch of :func:`_panel_scratch`."""
     nb, m, b = panel.shape
-    # the kernel writes R and V row-major whatever the panel's strides
-    r = panel.new_empty(panel.shape)
-    v = panel.new_empty(panel.shape)
-    taus = panel.new_empty((nb, b))
+    if direct is None:
+        direct = shared and panel.is_contiguous()
+    work = panel if direct else _panel_scratch(panel)
+    return _launch_panel(work, m, b, cluster, shared, kernel, direct)
+
+
+def _panel_scratch(panel: torch.Tensor) -> torch.Tensor:
+    """The panel column-major per matrix, (Nb, 8·groups, M), zero columns up
+    to the next multiple of 8: the layout the stripe body reads."""
+    nb, m, b = panel.shape
     work = panel.new_zeros((nb, -(-b // STRIPE) * STRIPE, m))
     work[:, :b] = panel.mT
-    f64 = panel.dtype == torch.float64
+    return work
+
+
+def _launch_panel(work: torch.Tensor, m: int, b: int, cluster: int,
+                  shared: bool, kernel: str, rowmajor: bool = False):
+    """The stripe body's panel kernel on ``work``, the scratch of
+    :func:`_panel_scratch` or (``rowmajor``, the shared regime) the
+    contiguous panel itself → (R_panel, V, taus), row-major whatever the
+    panel's strides. The shared regime leaves ``work`` as it was, the
+    global regime eliminates in it."""
+    nb = work.shape[0]
+    r = work.new_empty((nb, m, b))
+    v = work.new_empty((nb, m, b))
+    taus = work.new_empty((nb, b))
+    f64 = work.dtype == torch.float64
     _build.launch("nd4js_house_stripe_t_f64" if f64
-                  else "nd4js_house_stripe_t_f32", panel.device, work, r, v,
-                  taus, nb, m, b, cluster, int(shared))
-    stripe_launches += 1
+                  else "nd4js_house_stripe_t_f32", work.device, work, r, v,
+                  taus, nb, m, b, cluster, int(shared), int(rowmajor),
+                  kernel=kernel)
     return r, v, taus

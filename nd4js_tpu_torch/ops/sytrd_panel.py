@@ -14,17 +14,34 @@ returned exactly symmetric: each entry (i, j ≥ i) is computed once as
 (c_ij − x_ij) − x_ji with X = V·Wᵀ and mirrored, so that the next panel
 may read a column of it as a row. (The TPU kernel computes the full block
 as c − X − Xᵀ, whose two triangles round differently.)
+
+The kernel runs each matrix on one thread-block cluster; :func:`plan`
+chooses its size, the rows each block holds, how many of their columns
+stay in shared memory (the rest come from L2 once a step) and the threads
+of a block.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..core.mm import mm, mt
 from . import _build
 
-__all__ = ["MAX_BK", "sytrd_panel", "sytrd_panel_ref"]
+__all__ = ["CLUSTER_SIZES", "MAX_BK", "card_plan", "placeable_sizes", "plan",
+           "regime", "resident_clusters", "smem_elements", "sytrd_panel",
+           "sytrd_panel_ref"]
 
-MAX_BK = 64        # widest panel the kernel takes
+MAX_BK = 64        # widest panel the kernel takes (kMaxBk)
+CLUSTER_SIZES = tuple(range(1, 17))  # up to kMaxCluster; above 8 non-portable
+MAX_THREADS = 1024                 # kMaxThreads
+RED = 32                           # kRed: block_sum's scratch
+# SMs of an H100 SXM
+SMS = 132
+# fewest rows of C a block of a raised cluster holds: below that a step is
+# all barriers
+MIN_ROWS = 16
 
 # Kernel launches since the last reset; only sytrd_panel's CUDA branch adds
 # to it.
@@ -73,6 +90,112 @@ def sytrd_panel_ref(c: torch.Tensor, bk: int):
     return trail, V, W, taus, dd, ee
 
 
+def smem_elements(m: int, bk: int, rows: int, ncs: int, cluster: int) -> int:
+    """Shared memory of one block of the column loop, in elements: ``layout``
+    of ``csrc/sytrd_panel.cu`` (C's rows·ncs, V and W at an odd leading
+    dimension, the column of the whole matrix, the slab's column of C, v
+    and w, eight vectors of bk, this block's partial sums before they are
+    pushed and each rank's after, and the block sum's scratch)."""
+    return (m + rows * ncs + 2 * bk * (rows | 1) + 3 * rows + 8 * bk + 1
+            + cluster * (2 * bk + 2) + 1 + RED)
+
+
+def placeable_sizes(m: int, bk: int, dtype: torch.dtype):
+    """The cluster sizes whose blocks hold their rows of V and W and the
+    step's vectors in 227 KB (C's rows may all come from L2)."""
+    cap = _build.SMEM_MAX // (torch.finfo(dtype).bits // 8)
+    return [c for c in CLUSTER_SIZES
+            if smem_elements(m, bk, -(-m // c), 0, c) <= cap]
+
+
+@functools.lru_cache(maxsize=256)
+def plan(nb: int, m: int, bk: int, dtype: torch.dtype,
+         cluster: int | None = None, resident: tuple | None = None):
+    """Launch of the kernel on ``nb`` blocks (m, m), a panel of ``bk``:
+    (cluster size, threads a block, rows a block, columns of them in shared
+    memory, shared-memory bytes a block).
+
+    A block holds ceil(m / C) rows of C, its rows of V and W and the step's
+    vectors; a cluster size is placeable when all but C fit 227 KB. The
+    rule: the smallest placeable cluster, raised as far as the launch still
+    runs in one wave and every block holds at least MIN_ROWS rows; the
+    smallest placeable one when no larger keeps one wave. One wave: nb
+    clusters of C at once, which ``resident`` ((C, clusters), ... of the
+    card, from :func:`resident_clusters`) says where given, else the SMS
+    SMs (nb·C ≤ SMS). On the H100 the two differ: it holds 30 clusters of
+    4 such blocks, not 33, as its SMs come in groups that a cluster may
+    not span. C's rows then take what shared memory is left, their last
+    columns first: a float64 slab is twice as large, so more of it comes
+    from L2. Threads: two rows a warp, 4 to 32 warps. ``cluster`` forces a
+    placeable size (the card's checks run each one). Raises ValueError for
+    a panel the kernel does not take and for a shape no cluster places.
+    """
+    if not 1 <= bk <= min(MAX_BK, m - 1):
+        raise ValueError(f"sytrd_panel: needs 1 <= bk <= min({MAX_BK}, "
+                         f"m - 1), got m={m}, bk={bk}")
+    elem = torch.finfo(dtype).bits // 8
+    cap = _build.SMEM_MAX // elem
+    placeable = placeable_sizes(m, bk, dtype)
+    if not placeable:
+        raise ValueError(f"sytrd_panel: no cluster of up to "
+                         f"{CLUSTER_SIZES[-1]} blocks holds the rows of V and "
+                         f"W of m={m}, bk={bk} ({dtype})")
+    if cluster is None:
+        holds = dict(resident) if resident else {c: SMS // c
+                                                 for c in placeable}
+        wave = [c for c in placeable if nb <= holds[c]
+                and (c == placeable[0] or -(-m // c) >= MIN_ROWS)]
+        cluster = max(wave) if wave else placeable[0]
+    elif cluster not in placeable:
+        raise ValueError(f"sytrd_panel: a cluster of {cluster} does not "
+                         f"place m={m}, bk={bk} ({dtype})")
+    rows = -(-m // cluster)
+    # a multiple of 16 bytes, so that the kernel's loads of C stay aligned
+    vec = 16 // elem
+    ncs = min(m, (cap - smem_elements(m, bk, rows, 0, cluster)) // rows)
+    ncs -= ncs % vec
+    warps = 4
+    while warps < 32 and 2 * warps < rows:
+        warps *= 2
+    return (cluster, 32 * warps, rows, ncs,
+            elem * smem_elements(m, bk, rows, ncs, cluster))
+
+
+def resident_clusters(the_plan, dtype: torch.dtype) -> int:
+    """Clusters of a launch in ``the_plan`` that the card holds at once,
+    from cudaOccupancyMaxActiveClusters (needs the card and the built
+    kernel library): nb matrices take ceil(nb / that) waves."""
+    cluster, threads, _, _, smem = the_plan
+    n = _build.library().nd4js_sytrd_panel_clusters(
+        int(dtype == torch.float64), cluster, threads, smem)
+    if n < 0:
+        raise RuntimeError(f"sytrd_panel: cudaOccupancyMaxActiveClusters "
+                           f"failed with CUDA error {-n}")
+    return n
+
+
+def regime(cluster: int, threads: int, rows: int, ncs: int, smem: int,
+           m: int) -> str:
+    """A plan of a panel of m rows in words, for the card's printouts."""
+    return (f"cluster of {cluster}, {threads} threads, {rows} rows a block, "
+            f"{m - ncs} of {m} columns from L2, {smem} bytes")
+
+
+def _launch(c, trail, vt, wt, taus, dd, ee, the_plan, stages=3):
+    """The kernel on contiguous CUDA tensors in ``the_plan``, counted in
+    ``launches``. ``stages`` 1 runs only the column loop and 2 only the
+    trailing update (on V and W from an earlier launch), to time them
+    apart."""
+    global launches
+    nb, m, _ = c.shape
+    bk = vt.shape[1]
+    f64 = c.dtype == torch.float64
+    _build.launch("nd4js_sytrd_panel_f64" if f64 else "nd4js_sytrd_panel_f32",
+                  c.device, c, trail, vt, wt, taus, dd, ee, nb, m, bk,
+                  *the_plan, stages)
+    launches += 1
+
+
 def sytrd_panel(c: torch.Tensor, bk: int):
     """One latrd panel of ``bk`` columns on a batch of exactly symmetric
     blocks C (Nb, m, m), 1 ≤ bk ≤ min(MAX_BK, m − 1) → (C_trailing
@@ -80,11 +203,10 @@ def sytrd_panel(c: torch.Tensor, bk: int):
     bk)), with C_trailing = (C − V·Wᵀ − W·Vᵀ)[:, bk:, bk:], exactly
     symmetric.
 
-    A CUDA tensor runs the kernel (or raises); a CPU tensor runs
-    :func:`sytrd_panel_ref`. The kernel returns V and W as transposed
-    views of its (Nb, bk, m) panels.
+    A CUDA tensor runs the kernel in the launch of :func:`card_plan` (or
+    raises); a CPU tensor runs :func:`sytrd_panel_ref`. The kernel returns
+    V and W as transposed views of its (Nb, bk, m) panels.
     """
-    global launches
     on_card = _build.check_operand(c, "sytrd_panel", 3)
     nb, m, m2 = c.shape
     if m != m2 or not 1 <= bk <= min(MAX_BK, m - 1):
@@ -93,13 +215,39 @@ def sytrd_panel(c: torch.Tensor, bk: int):
                          f"bk={bk}")
     if not on_card:
         return sytrd_panel_ref(c, bk)
+    return _sytrd_panel_in(c, bk, card_plan(nb, m, bk, c.dtype, c.device))
+
+
+def _sytrd_panel_in(c: torch.Tensor, bk: int, the_plan):
+    """:func:`sytrd_panel` on a CUDA tensor in the launch ``the_plan`` (the
+    card's checks run every cluster size); one the card cannot place
+    raises."""
+    nb, m, _ = c.shape
     c = c.contiguous()
     trail = c.new_empty((nb, m - bk, m - bk))
     vt = c.new_empty((nb, bk, m))
     wt = c.new_empty((nb, bk, m))
     taus, dd, ee = (c.new_empty((nb, bk)) for _ in range(3))
-    f64 = c.dtype == torch.float64
-    _build.launch("nd4js_sytrd_panel_f64" if f64 else "nd4js_sytrd_panel_f32",
-                  c.device, c, trail, vt, wt, taus, dd, ee, nb, m, bk)
-    launches += 1
+    if nb:
+        _launch(c, trail, vt, wt, taus, dd, ee, the_plan)
     return trail, mt(vt), mt(wt), taus, dd, ee
+
+
+def card_plan(nb: int, m: int, bk: int, dtype: torch.dtype, device):
+    """:func:`plan` with the clusters that the card of ``device`` holds at
+    once (needs the card): the launch :func:`sytrd_panel` makes."""
+    return plan(nb, m, bk, dtype, resident=_resident(m, bk, dtype, device))
+
+
+def _resident(m: int, bk: int, dtype: torch.dtype, device) -> tuple:
+    """(C, clusters the card holds at once) for each placeable C."""
+    return _resident_on(m, bk, dtype, device.index if device.index is not None
+                        else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _resident_on(m: int, bk: int, dtype: torch.dtype, index: int) -> tuple:
+    with torch.cuda.device(index):
+        return tuple((c, resident_clusters(plan(1, m, bk, dtype, cluster=c),
+                                           dtype))
+                     for c in placeable_sizes(m, bk, dtype))

@@ -211,6 +211,39 @@ def test_house_stripe_t_kernel_in_every_cluster_size(cuda, cluster, shared,
         assert float((g - w).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("shape", [(32, 512, 128), (1024, 128, 64),
+                                   (4, 128, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_house_panel_kernel_in_every_regime(cuda, shape, dtype):
+    """house_panel on the stripe body, one launch each, against its plain
+    version in every regime that house_stripe.stripe_plan can give it: the
+    shared regime on each cluster size that holds the panel, the plan's,
+    and the global regime on the plan's cluster size; in the plan's
+    shared regime also through the column-major scratch (the route of a
+    transposed view) instead of the direct load. Shapes: the headline's
+    first panel, lstsq's pre-QR and the entry's."""
+    a = _on(cuda, np.random.default_rng(36).standard_normal(shape), dtype)
+    a[0, :, shape[-1] // 2] = 0                 # a zero column: tau = 0
+    nb, m, b = shape
+    plan = hs.stripe_plan(a)
+    regimes = {(c, True) for c in hs.CLUSTER_SIZES
+               if c <= -(-min(m, b) // hs.STRIPE)
+               and hs.smem_bytes(m, b, min(m, b), 0, c, True, dtype)
+               <= _build.SMEM_MAX} | {plan, (plan[0], False)}
+    want = hp.house_panel_ref(a)
+    tol = TOL[dtype] * float(a.abs().max())
+    outs = []
+    for cluster, shared in sorted(regimes):
+        before = hp.launches
+        outs.append(hp._house_panel_in(a, cluster, shared))
+        assert hp.launches == before + 1
+    if plan[1]:
+        outs.append(hs._stripe_panel(a, *plan, "house_panel", False))
+    for got in outs:
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol
+
+
 # (Nb, N, K, cluster, shared) of qr_gesv: config 1 in each cluster size and
 # in the global regime, a system that fits one block, and the plan's choice
 # (None) for N not a multiple of 8 with K > 8 and for the 768² global regime
@@ -547,6 +580,30 @@ def test_sytrd_panel_kernel_matches_plain_version(cuda, shape, bk, dtype):
     c = _on(cuda, _sym(np.random.default_rng(38), shape), dtype)
     before = sp.launches
     got = sp.sytrd_panel(c, bk)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1
+    assert_sytrd_panel_close(got, sp.sytrd_panel_ref(c, bk), c, bk, dtype)
+    assert_panel_backward_stable(c, got, bk)
+
+
+# every cluster size in each dtype: on config 4's first panel each size
+# that places it, on a small batch the sizes below those, and the Gram
+# batch's shape on a few
+SYTRD_CLUSTERS = (
+    [((1, 1024, 1024), 64, c, dtype) for dtype in DTYPES
+     for c in sp.placeable_sizes(1024, 64, dtype)]
+    + [((3, 100, 100), 63, c, dtype) for dtype in DTYPES
+       for c in range(1, 6)]
+    + [((4, 512, 512), 64, c, dtype) for dtype in DTYPES for c in (3, 4, 8)])
+
+
+@pytest.mark.parametrize("shape,bk,cluster,dtype", SYTRD_CLUSTERS)
+def test_sytrd_panel_kernel_in_every_cluster_size(cuda, shape, bk, cluster,
+                                                  dtype):
+    c = _on(cuda, _sym(np.random.default_rng(37), shape), dtype)
+    before = sp.launches
+    got = sp._sytrd_panel_in(c, bk, sp.plan(*shape[:2], bk, dtype,
+                                             cluster=cluster))
     torch.cuda.synchronize()
     assert sp.launches == before + 1
     assert_sytrd_panel_close(got, sp.sytrd_panel_ref(c, bk), c, bk, dtype)

@@ -165,16 +165,16 @@ def test_bound_c_functions_exist_in_the_cuda_sources():
 
 
 def test_cuda_sources_state_what_they_replace():
-    """house_panel.cu is still the simple first version; house_stripe.cu
-    replaces both kernels of ops/house_stripe.py on the stripe body of
-    house_stripe.cuh."""
+    """house_stripe.cu replaces house_panel and both kernels of
+    ops/house_stripe.py on the one stripe body of house_stripe.cuh: the
+    one-block house_panel.cu is gone."""
     for name, tpus, design in (
-            ("house_panel.cu", ["ops/house_panel.py::house_panel"],
-             "simple first version"),
-            ("house_stripe.cu", ["ops/house_stripe.py::house_stripe_t",
+            ("house_stripe.cu", ["ops/house_panel.py::house_panel",
+                                 "ops/house_stripe.py::house_stripe_t",
                                  "ops/house_stripe.py::qr_gesv"],
-             "house_stripe.cuh")):
+             "house_stripe.cuh"),):
         head = (CSRC / name).read_text().split("#include")[0]
         assert all(t in head for t in tpus) and "Bound on the H100" in head
         assert design in head
     assert not (CSRC / "qr_gesv.cu").exists()
+    assert not (CSRC / "house_panel.cu").exists()

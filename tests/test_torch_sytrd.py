@@ -152,7 +152,8 @@ def test_c_signatures_match_the_extern_c_declarations():
     extern = src[src.index('extern "C"'):]
     defined = {m.group(1): m.group(2).split(",") for m in re.finditer(
         r"^int (nd4js_\w+)\(([^)]*)\)", extern, re.M)}
-    assert sorted(defined) == ["nd4js_sytrd_panel_f32",
+    assert sorted(defined) == ["nd4js_sytrd_panel_clusters",
+                               "nd4js_sytrd_panel_f32",
                                "nd4js_sytrd_panel_f64"]
     for fn, args in defined.items():
         restype, argtypes = _build._SIGNATURES[fn]
@@ -164,7 +165,8 @@ def test_c_signatures_match_the_extern_c_declarations():
 def test_cuda_source_states_what_it_replaces():
     head = (CSRC / "sytrd_panel.cu").read_text().split("#include")[0]
     assert "ops/sytrd_panel.py::sytrd_panel" in head
-    assert "Bound on the H100" in head and "simple first version" in head
+    assert "Bound on the H100" in head and "thread-block cluster" in head
+    assert "What held the first version back" in head
 
 
 @functools.lru_cache(maxsize=None)
