@@ -316,6 +316,16 @@ def phase2_qr(rng, errs):
             want = hp.house_panel_ref(a)
             tol = TOL[dtype] * maxabs(a)
             plan = hs.stripe_plan(a)
+            # the wrapper as the main path calls it, then every regime
+            before = hp.launches
+            got = hp.house_panel(a)
+            err = max(maxabs(g - w) for g, w in zip(got, want))
+            if dtype == torch.float32:
+                errs["house_panel"] = max(errs["house_panel"], err)
+            check(hp.launches == before + 1 and err <= tol,
+                  f"house_panel {shape} {dtype} (the wrapper: "
+                  f"{hs.regime(*plan)}): one launch; max |kernel - plain| "
+                  f"over R, V, taus = {err:.3e} <= {tol:.3e}")
             for c, sh in stripe_regimes(a):
                 before = hp.launches
                 got = hp._house_panel_in(a, c, sh)
@@ -570,11 +580,12 @@ def panel_backward_error(c, out, bk):
 
 
 def phase2_sytrd(rng, errs):
-    """sytrd_panel against its plain version in the plan's launch, and on
+    """sytrd_panel against its plain version through the wrapper, and on
     every cluster size its plan can choose in each dtype: config 4's
     (1, 1024, 1024) on each size that places it (3-16 in float32, 6-16 in
     float64), the smaller ones on (3, 100, 100) in float64 and the τ = 0
-    blocks in float32."""
+    blocks in float32; and (2, 1100, 1100) on one block a matrix, a slab
+    of more rows than threads."""
     every = None  # every cluster size that places the panel
     # the inputs of the float32 (1, 1024, 1024) and (3, 100, 100) come first
     # from `rng`, as before the cluster sizes were added
@@ -592,14 +603,21 @@ def phase2_sytrd(rng, errs):
                 np.random.default_rng(SEED + 12), (1, 1024, 1024))).to(DEVICE),
              64, every),
             ("Gram (32, 512, 512)", gram(np.random.default_rng(SEED + 13),
-                                         (32, 512, 512)).double(), 64, ())):
+                                         (32, 512, 512)).double(), 64, ()),
+            # a slab of more rows than the block's 1024 threads
+            ("(2, 1100, 1100)", torch.from_numpy(symmetric(
+                np.random.default_rng(SEED + 14), (2, 1100, 1100))).to(
+                    DEVICE, torch.float32), 16, (1,))):
         want = sp.sytrd_panel_ref(c, bk)
         nb, m, _ = c.shape
         plan = sp.card_plan(nb, m, bk, c.dtype, c.device)
         if sizes is every:
             sizes = sp.placeable_sizes(m, bk, c.dtype)
+        # the wrapper as the main path calls it, then every size
+        sytrd_check(f"sytrd_panel {what} {c.dtype} bk={bk} (the wrapper: "
+                    f"{sp.regime(*plan, m)})", c, bk, None, want, errs)
         for cluster in sorted(set(sizes) | {plan[0]}):
-            launch = sp.plan(nb, m, bk, c.dtype, cluster=cluster)
+            launch = sp.launch_on(m, bk, c.dtype, cluster)
             sytrd_check(f"sytrd_panel {what} {c.dtype} bk={bk} ("
                         f"{sp.regime(*launch, m)}"
                         f"{', the plan' if launch == plan else ''})", c, bk,
@@ -607,12 +625,14 @@ def phase2_sytrd(rng, errs):
 
 
 def sytrd_check(what, c, bk, launch, want, errs):
-    """One sytrd_panel launch against the plain version's ``want``: every
-    output within SYTRD_C·eps·m (·max|C|), the trailing block exactly
-    symmetric, the panel's contract, and τ = 0 where the input asks."""
+    """One sytrd_panel launch (the wrapper's where ``launch`` is None)
+    against the plain version's ``want``: every output within
+    SYTRD_C·eps·m (·max|C|), the trailing block exactly symmetric, the
+    panel's contract, and τ = 0 where the input asks."""
     dtype = c.dtype
     before = sp.launches
-    got = sp._sytrd_panel_in(c, bk, launch)
+    got = (sp.sytrd_panel(c, bk) if launch is None
+           else sp._sytrd_panel_in(c, bk, launch))
     check(sp.launches == before + 1, f"{what}: one launch")
     m = c.shape[-1]
     cmax = maxabs(c)
@@ -2048,7 +2068,7 @@ def sytrd_breakdown(c4, cg) -> dict:
                 c.new_empty((nb, bk, m)), c.new_empty((nb, bk)),
                 c.new_empty((nb, bk)), c.new_empty((nb, bk)))
         plans = [sp.card_plan(nb, m, bk, c.dtype, c.device)]
-        plans += [sp.plan(nb, m, bk, c.dtype, cluster=cl)
+        plans += [sp.launch_on(m, bk, c.dtype, cl)
                   for cl in sp.placeable_sizes(m, bk, c.dtype)]
         for i, plan in enumerate(plans):
             sp._launch(c, *bufs, plan)   # V and W for the update alone

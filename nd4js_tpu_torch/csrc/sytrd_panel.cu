@@ -60,8 +60,9 @@
 // its own. Wᵀv formed as (Wᵀx)/den rounds differently from the plain
 // version's Wᵀ(x/den), by about what a last-bit change of C would move it.
 // The column j of C for the next step is loaded into a register before
-// the product and stored after it, off the step's chain. What a step still
-// spends its time on: tools/sytrd_stamps.py (PERF.md §6).
+// the product and stored after it, off the step's chain (a slab of more
+// rows than threads loads its further rows at the start of the step, in
+// an instance of its own).
 // The rank-2b update of the trailing block is a second launch over many
 // blocks, one 32×32 tile of the upper triangle each, with the tile's slices
 // of V and W in shared memory; a tile is mirrored through shared memory so
@@ -214,7 +215,11 @@ __device__ __forceinline__ void push(cg::cluster_group& cl, T* p, int q, int ran
   *(q == rank ? p : cl.map_shared_rank(p, q)) = x;
 }
 
-template <typename T>
+// kMany: a slab of more rows than threads (one block a matrix of m > 1024
+// rows, say), whose further rows load column j at the start of a step; an
+// instance of its own, as that loop costs the common case spills at the
+// 64-register cap of 1024 threads.
+template <typename T, bool kMany>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 sytrd_cols_kernel(const T* __restrict__ c, T* vt, T* wt, T* taus, T* d, T* e, int m, int bk,
                   int rows, int ncs) {
@@ -262,7 +267,10 @@ sytrd_cols_kernel(const T* __restrict__ c, T* vt, T* wt, T* taus, T* d, T* e, in
     const int il = (int)(idx / ncs), l = (int)(idx - (size_t)il * ncs);
     Cs[idx] = c[(size_t)(r0 + il) * mm + lsplit + l];
   }
-  if (tid < nrows) cnext[tid] = c[(size_t)(r0 + tid) * mm];
+  if constexpr (kMany)
+    for (int il = tid; il < nrows; il += nt) cnext[il] = c[(size_t)(r0 + il) * mm];
+  else if (tid < nrows)
+    cnext[tid] = c[(size_t)(r0 + tid) * mm];
   cl.sync();  // every block of the cluster runs (its shared memory may be
               // written), and its slab is loaded
 
@@ -284,6 +292,11 @@ sytrd_cols_kernel(const T* __restrict__ c, T* vt, T* wt, T* taus, T* d, T* e, in
         vp[j - 1] = T(1);
         wp[j - 1] = *wpre - corr;
       }
+      // a slab of more rows than threads: column j of its further rows
+      if constexpr (kMany)
+        for (int il = tid + nt; il < nrows; il += nt)
+          cnext[il] = j >= lsplit ? Cs[(size_t)il * ncs + (j - lsplit)]
+                                  : c[(size_t)(r0 + il) * mm + j];
       __syncthreads();
     }
     // 1b. column j of C − V·Wᵀ − W·Vᵀ on the slab's rows j.., a warp a row
@@ -529,8 +542,12 @@ int launch(const T* c, T* out, T* vt, T* wt, T* taus, T* d, T* e, int nb, int m,
   if (bytes != (size_t)smem || bytes > kSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (stages & 1) {
-    const int rc = nd4js::launch_clusters(sytrd_cols_kernel<T>, nb * csize, threads, csize, bytes,
-                                          stream, c, vt, wt, taus, d, e, m, bk, rows, ncs);
+    const int rc =
+        rows > threads
+            ? nd4js::launch_clusters(sytrd_cols_kernel<T, true>, nb * csize, threads, csize,
+                                     bytes, stream, c, vt, wt, taus, d, e, m, bk, rows, ncs)
+            : nd4js::launch_clusters(sytrd_cols_kernel<T, false>, nb * csize, threads, csize,
+                                     bytes, stream, c, vt, wt, taus, d, e, m, bk, rows, ncs);
     if (rc != 0) return rc;
   }
   if (stages & 2) {
@@ -547,12 +564,13 @@ int launch(const T* c, T* out, T* vt, T* wt, T* taus, T* d, T* e, int nb, int m,
 extern "C" {
 
 // Clusters of the column loop's launch that the card holds at once (its
-// waves: ceil(nb / that)), or a negative CUDA error.
+// waves: ceil(nb / that)), or a negative CUDA error. Both instances take
+// the same: one block of `threads` and `smem` bytes an SM.
 int nd4js_sytrd_panel_clusters(int f64, int csize, int threads, int smem) {
   int clusters = 0;
-  const int rc = f64 ? nd4js::active_clusters(sytrd_cols_kernel<double>, threads, csize,
+  const int rc = f64 ? nd4js::active_clusters(sytrd_cols_kernel<double, false>, threads, csize,
                                               (size_t)smem, &clusters)
-                     : nd4js::active_clusters(sytrd_cols_kernel<float>, threads, csize,
+                     : nd4js::active_clusters(sytrd_cols_kernel<float, false>, threads, csize,
                                               (size_t)smem, &clusters);
   return rc != 0 ? -rc : clusters;
 }

@@ -16,9 +16,10 @@ may read a column of it as a row. (The TPU kernel computes the full block
 as c − X − Xᵀ, whose two triangles round differently.)
 
 The kernel runs each matrix on one thread-block cluster; :func:`plan`
-chooses its size, the rows each block holds, how many of their columns
-stay in shared memory (the rest come from L2 once a step) and the threads
-of a block.
+chooses its size from the clusters the card holds at once, and
+:func:`launch_on` lays out the rows each block holds, how many of their
+columns stay in shared memory (the rest come from L2 once a step) and the
+threads of a block.
 """
 from __future__ import annotations
 
@@ -29,16 +30,14 @@ import torch
 from ..core.mm import mm, mt
 from . import _build
 
-__all__ = ["CLUSTER_SIZES", "MAX_BK", "card_plan", "placeable_sizes", "plan",
-           "regime", "resident_clusters", "smem_elements", "sytrd_panel",
-           "sytrd_panel_ref"]
+__all__ = ["CLUSTER_SIZES", "MAX_BK", "card_plan", "launch_on",
+           "placeable_sizes", "plan", "regime", "resident_clusters",
+           "smem_elements", "sytrd_panel", "sytrd_panel_ref"]
 
 MAX_BK = 64        # widest panel the kernel takes (kMaxBk)
 CLUSTER_SIZES = tuple(range(1, 17))  # up to kMaxCluster; above 8 non-portable
 MAX_THREADS = 1024                 # kMaxThreads
 RED = 32                           # kRed: block_sum's scratch
-# SMs of an H100 SXM
-SMS = 132
 # fewest rows of C a block of a raised cluster holds: below that a step is
 # all barriers
 MIN_ROWS = 16
@@ -109,46 +108,42 @@ def placeable_sizes(m: int, bk: int, dtype: torch.dtype):
 
 
 @functools.lru_cache(maxsize=256)
-def plan(nb: int, m: int, bk: int, dtype: torch.dtype,
-         cluster: int | None = None, resident: tuple | None = None):
-    """Launch of the kernel on ``nb`` blocks (m, m), a panel of ``bk``:
-    (cluster size, threads a block, rows a block, columns of them in shared
-    memory, shared-memory bytes a block).
+def plan(nb: int, m: int, bk: int, dtype: torch.dtype, resident: tuple):
+    """Launch of the kernel on ``nb`` blocks (m, m), a panel of ``bk``, on a
+    card that holds ``resident`` ((C, clusters), ... for each placeable
+    cluster size C, from :func:`resident_clusters`) at once: (cluster size,
+    threads a block, rows a block, columns of them in shared memory,
+    shared-memory bytes a block), as :func:`launch_on` lays it out.
 
-    A block holds ceil(m / C) rows of C, its rows of V and W and the step's
-    vectors; a cluster size is placeable when all but C fit 227 KB. The
-    rule: the smallest placeable cluster, raised as far as the launch still
-    runs in one wave and every block holds at least MIN_ROWS rows; the
-    smallest placeable one when no larger keeps one wave. One wave: nb
-    clusters of C at once, which ``resident`` ((C, clusters), ... of the
-    card, from :func:`resident_clusters`) says where given, else the SMS
-    SMs (nb·C ≤ SMS). On the H100 the two differ: it holds 30 clusters of
-    4 such blocks, not 33, as its SMs come in groups that a cluster may
-    not span. C's rows then take what shared memory is left, their last
-    columns first: a float64 slab is twice as large, so more of it comes
-    from L2. Threads: two rows a warp, 4 to 32 warps. ``cluster`` forces a
-    placeable size (the card's checks run each one). Raises ValueError for
-    a panel the kernel does not take and for a shape no cluster places.
+    The rule: the smallest placeable cluster, raised as far as the launch
+    still runs in one wave (nb clusters resident at once) and every block
+    holds at least MIN_ROWS rows; the smallest placeable one when no larger
+    keeps one wave. The H100 holds 30 clusters of 4 such blocks at once, not
+    132 / 4 = 33, as its SMs come in groups that a cluster may not span.
+    Raises ValueError for a panel the kernel does not take and for a shape
+    no cluster places.
     """
-    if not 1 <= bk <= min(MAX_BK, m - 1):
-        raise ValueError(f"sytrd_panel: needs 1 <= bk <= min({MAX_BK}, "
-                         f"m - 1), got m={m}, bk={bk}")
-    elem = torch.finfo(dtype).bits // 8
-    cap = _build.SMEM_MAX // elem
-    placeable = placeable_sizes(m, bk, dtype)
-    if not placeable:
-        raise ValueError(f"sytrd_panel: no cluster of up to "
-                         f"{CLUSTER_SIZES[-1]} blocks holds the rows of V and "
-                         f"W of m={m}, bk={bk} ({dtype})")
-    if cluster is None:
-        holds = dict(resident) if resident else {c: SMS // c
-                                                 for c in placeable}
-        wave = [c for c in placeable if nb <= holds[c]
-                and (c == placeable[0] or -(-m // c) >= MIN_ROWS)]
-        cluster = max(wave) if wave else placeable[0]
-    elif cluster not in placeable:
+    placeable = _placeable(m, bk, dtype)
+    holds = dict(resident)
+    wave = [c for c in placeable if nb <= holds[c]
+            and (c == placeable[0] or -(-m // c) >= MIN_ROWS)]
+    return launch_on(m, bk, dtype, max(wave) if wave else placeable[0])
+
+
+def launch_on(m: int, bk: int, dtype: torch.dtype, cluster: int):
+    """The launch of a panel of ``bk`` on blocks (m, m) on clusters of
+    ``cluster`` blocks, a placeable size (the card's checks run each one):
+    (cluster, threads a block, rows a block, columns of them in shared
+    memory, shared-memory bytes a block). A block holds ceil(m / cluster)
+    rows of C; they take what shared memory its rows of V and W and the
+    step's vectors leave, their last columns first: a float64 slab is twice
+    as large, so more of it comes from L2. Threads: two rows a warp, 4 to
+    32 warps (a slab of more than 1024 rows has more rows than threads)."""
+    if cluster not in _placeable(m, bk, dtype):
         raise ValueError(f"sytrd_panel: a cluster of {cluster} does not "
                          f"place m={m}, bk={bk} ({dtype})")
+    elem = torch.finfo(dtype).bits // 8
+    cap = _build.SMEM_MAX // elem
     rows = -(-m // cluster)
     # a multiple of 16 bytes, so that the kernel's loads of C stay aligned
     vec = 16 // elem
@@ -159,6 +154,20 @@ def plan(nb: int, m: int, bk: int, dtype: torch.dtype,
         warps *= 2
     return (cluster, 32 * warps, rows, ncs,
             elem * smem_elements(m, bk, rows, ncs, cluster))
+
+
+def _placeable(m: int, bk: int, dtype: torch.dtype):
+    """:func:`placeable_sizes`, or ValueError for a panel the kernel does
+    not take or that no cluster places."""
+    if not 1 <= bk <= min(MAX_BK, m - 1):
+        raise ValueError(f"sytrd_panel: needs 1 <= bk <= min({MAX_BK}, "
+                         f"m - 1), got m={m}, bk={bk}")
+    placeable = placeable_sizes(m, bk, dtype)
+    if not placeable:
+        raise ValueError(f"sytrd_panel: no cluster of up to "
+                         f"{CLUSTER_SIZES[-1]} blocks holds the rows of V and "
+                         f"W of m={m}, bk={bk} ({dtype})")
+    return placeable
 
 
 def resident_clusters(the_plan, dtype: torch.dtype) -> int:
@@ -248,6 +257,5 @@ def _resident(m: int, bk: int, dtype: torch.dtype, device) -> tuple:
 @functools.lru_cache(maxsize=256)
 def _resident_on(m: int, bk: int, dtype: torch.dtype, index: int) -> tuple:
     with torch.cuda.device(index):
-        return tuple((c, resident_clusters(plan(1, m, bk, dtype, cluster=c),
-                                           dtype))
+        return tuple((c, resident_clusters(launch_on(m, bk, dtype, c), dtype))
                      for c in placeable_sizes(m, bk, dtype))

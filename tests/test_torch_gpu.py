@@ -588,13 +588,17 @@ def test_sytrd_panel_kernel_matches_plain_version(cuda, shape, bk, dtype):
 
 # every cluster size in each dtype: on config 4's first panel each size
 # that places it, on a small batch the sizes below those, and the Gram
-# batch's shape on a few
+# batch's shape on a few; then slabs of more rows than a block's 1024
+# threads, one cluster a matrix
 SYTRD_CLUSTERS = (
     [((1, 1024, 1024), 64, c, dtype) for dtype in DTYPES
      for c in sp.placeable_sizes(1024, 64, dtype)]
     + [((3, 100, 100), 63, c, dtype) for dtype in DTYPES
        for c in range(1, 6)]
-    + [((4, 512, 512), 64, c, dtype) for dtype in DTYPES for c in (3, 4, 8)])
+    + [((4, 512, 512), 64, c, dtype) for dtype in DTYPES for c in (3, 4, 8)]
+    + [((2, 1100, 1100), 16, 1, torch.float32),
+       ((1, 2100, 2100), 8, 1, torch.float32),
+       ((2, 1100, 1100), 4, 1, torch.float64)])
 
 
 @pytest.mark.parametrize("shape,bk,cluster,dtype", SYTRD_CLUSTERS)
@@ -602,12 +606,26 @@ def test_sytrd_panel_kernel_in_every_cluster_size(cuda, shape, bk, cluster,
                                                   dtype):
     c = _on(cuda, _sym(np.random.default_rng(37), shape), dtype)
     before = sp.launches
-    got = sp._sytrd_panel_in(c, bk, sp.plan(*shape[:2], bk, dtype,
-                                             cluster=cluster))
+    got = sp._sytrd_panel_in(c, bk, sp.launch_on(shape[1], bk, dtype,
+                                                  cluster))
     torch.cuda.synchronize()
     assert sp.launches == before + 1
     assert_sytrd_panel_close(got, sp.sytrd_panel_ref(c, bk), c, bk, dtype)
     assert_panel_backward_stable(c, got, bk)
+
+
+def test_sytrd_panel_kernel_on_a_batch_the_card_places_on_single_blocks(
+        cuda):
+    """100 matrices of 1100², a panel of 16: more clusters of 2 than the
+    card holds at once, so the plan gives each matrix one block of 1024
+    threads and its 1100 rows."""
+    c = _on(cuda, _sym(np.random.default_rng(36), (100, 1100, 1100)),
+            torch.float32)
+    _, threads, rows, _, _ = sp.card_plan(100, 1100, 16, c.dtype, c.device)
+    assert rows > threads
+    got = sp.sytrd_panel(c, 16)
+    assert_sytrd_panel_close(got, sp.sytrd_panel_ref(c, 16), c, 16,
+                             torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

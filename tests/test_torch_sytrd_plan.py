@@ -3,13 +3,17 @@ CPU: config 4's sixteen panels of a 1024² eigh and the Gram batch's eight
 of a (32, 512, 512) eigh_tridiag_dc, in float32 and float64, and the
 shapes the kernel cannot take.
 
-Every launch must fit one Hopper block (at most 232448 bytes of shared
-memory), count the bytes of the kernel's own layout, cover the m rows
-with its blocks' slabs exactly once, run in one wave of the card's 132
-SMs where any placeable cluster does, and take the largest such cluster.
-The kernel's constants and its shared-memory layout are read from
-``csrc/sytrd_panel.cu``, so the plan cannot drift from them.
+``plan`` chooses a cluster size from the clusters the card holds at once;
+here it is given the ones an H100 reported for each of those panels
+(``h100_sytrd_resident.json``, written by ``tools/sytrd_resident.py``), so
+the rule under test is the one the card runs. Every launch must fit one
+Hopper block (at most 232448 bytes of shared memory), count the bytes of
+the kernel's own layout, cover the m rows with its blocks' slabs exactly
+once, run in one wave where any placeable cluster does, and take the
+largest such cluster. The kernel's constants and its shared-memory layout
+are read from ``csrc/sytrd_panel.cu``, so the plan cannot drift from them.
 """
+import json
 import re
 from pathlib import Path
 
@@ -25,6 +29,15 @@ DTYPES = [torch.float32, torch.float64]
 # config 4's panels of one 1024² matrix, the Gram batch's of 32 of 512²
 CONFIG4 = [(1, 1024 - k, min(64, 1023 - k)) for k in range(0, 1023, 64)]
 GRAM = [(32, 512 - k, min(64, 511 - k)) for k in range(0, 511, 64)]
+# (cluster size, clusters held at once) for each placeable size, by dtype
+# and panel "m bk", as an NVIDIA H100 80GB HBM3 reported them
+H100 = json.loads((Path(__file__).parent / "h100_sytrd_resident.json")
+                  .read_text())
+
+
+def _resident(m, bk, dtype):
+    return tuple(map(tuple, H100[str(dtype).removeprefix("torch.")]
+                     [f"{m} {bk}"]))
 
 
 def _constant(name: str) -> int:
@@ -67,7 +80,8 @@ def test_smem_elements_is_the_kernel_layout(m, bk, rows, ncs, csize):
 @pytest.mark.parametrize("nb,m,bk", CONFIG4 + GRAM)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_places_every_main_path_panel(nb, m, bk, dtype):
-    cluster, threads, rows, ncs, smem = sp.plan(nb, m, bk, dtype)
+    resident = _resident(m, bk, dtype)
+    cluster, threads, rows, ncs, smem = sp.plan(nb, m, bk, dtype, resident)
     e = _elem(dtype)
     assert smem == e * _layout_elements(m, bk, rows, ncs, cluster)
     assert smem <= 232448
@@ -79,46 +93,53 @@ def test_plan_places_every_main_path_panel(nb, m, bk, dtype):
     assert sorted(i for s in slabs for i in s) == list(range(m))
     assert all(len(s) > 0 for s in slabs)
     # one wave, the largest placeable cluster that keeps it
-    assert nb * cluster <= sp.SMS
-    bigger = [c for c in sp.placeable_sizes(m, bk, dtype) if c > cluster]
-    assert all(nb * c > sp.SMS or -(-m // c) < sp.MIN_ROWS for c in bigger)
+    holds = dict(resident)
+    assert sorted(holds) == sp.placeable_sizes(m, bk, dtype)
+    assert nb <= holds[cluster]
+    bigger = [c for c in holds if c > cluster]
+    assert all(nb > holds[c] or -(-m // c) < sp.MIN_ROWS for c in bigger)
     assert threads % 32 == 0 and 128 <= threads <= sp.MAX_THREADS
     assert 2 * threads // 32 >= rows or threads == sp.MAX_THREADS
 
 
-# clusters of each size that an H100 holds at once for the Gram batch's
-# first panel (chip_smoke.py's phase 4 prints them): the card places a
-# cluster within one of its groups of SMs, so 30 of 4 blocks, not 33
-H100_GRAM = ((2, 66), (3, 39), (4, 30), (5, 22), (6, 17), (7, 15), (8, 15),
-             (9, 9), (10, 7), (11, 7), (12, 7), (13, 7), (14, 7), (15, 7),
-             (16, 14))
-
-
 def test_plan_main_path():
     """Config 4's first panel on a cluster of 16 (64 rows a block, 716 of
-    its 1024 columns in shared memory); the Gram batch's on clusters of 4,
-    32 of them on 128 SMs, or, where the card holds only 30 clusters of 4
-    at once, as the H100 does, on 32 clusters of 3; config 3's 8 matrices
-    on clusters of 16."""
-    assert sp.plan(1, 1024, 64, torch.float32) == (16, 1024, 64, 716, 231944)
-    assert sp.plan(32, 512, 64, torch.float32)[0] == 4
-    assert sp.plan(32, 512, 64, torch.float32, resident=H100_GRAM)[0] == 3
-    assert sp.plan(8, 512, 64, torch.float32, resident=H100_GRAM)[0] == 16
+    its 1024 columns in shared memory); the Gram batch's on 32 clusters of
+    3, as the H100 holds only 30 clusters of 4 at once (its SMs come in
+    groups that a cluster may not span); config 3's 8 matrices on clusters
+    of 16."""
+    gram = _resident(512, 64, torch.float32)
+    assert dict(gram)[4] == 30 and dict(gram)[3] >= 32
+    assert sp.plan(1, 1024, 64, torch.float32,
+                   _resident(1024, 64, torch.float32)) \
+        == (16, 1024, 64, 716, 231944)
+    assert sp.plan(32, 512, 64, torch.float32, gram)[0] == 3
+    assert sp.plan(8, 512, 64, torch.float32, gram)[0] == 16
     # a float64 slab is twice as large: more of it from L2
-    f32, f64 = (sp.plan(1, 1024, 64, d) for d in DTYPES)
+    f32, f64 = (sp.plan(1, 1024, 64, d, _resident(1024, 64, d))
+                for d in DTYPES)
     assert f64[0] == 16 and f64[3] < f32[3] / 2
+
+
+def test_plan_when_no_cluster_keeps_one_wave():
+    """More matrices than the card holds clusters of any size: the
+    smallest placeable cluster, in several waves."""
+    resident = _resident(1024, 64, torch.float32)
+    assert sp.plan(1000, 1024, 64, torch.float32, resident)[0] == 3
 
 
 def test_forced_cluster_sizes():
     """Every placeable size can be asked for; below 3 blocks (6 in
     float64) m = 1024 does not place, its rows of V and W too large for
-    one block."""
+    one block. A slab of more rows than 1024 threads on one block a
+    matrix."""
     assert sp.placeable_sizes(1024, 64, torch.float32) == list(range(3, 17))
     assert sp.placeable_sizes(1024, 64, torch.float64) == list(range(6, 17))
     for c in range(3, 17):
-        assert sp.plan(1, 1024, 64, torch.float32, cluster=c)[0] == c
+        assert sp.launch_on(1024, 64, torch.float32, c)[0] == c
     with pytest.raises(ValueError, match="does not place"):
-        sp.plan(1, 1024, 64, torch.float32, cluster=2)
+        sp.launch_on(1024, 64, torch.float32, 2)
+    assert sp.launch_on(1100, 16, torch.float32, 1)[1:3] == (1024, 1100)
 
 
 @pytest.mark.parametrize("m,bk,dtype,match", [
@@ -129,4 +150,6 @@ def test_plan_refuses_what_the_kernel_cannot_take(m, bk, dtype, match):
     """bk above 64 or above m − 1, and an m whose rows of V and W do not
     fit a block even on a cluster of 16."""
     with pytest.raises(ValueError, match=match):
-        sp.plan(1, m, bk, dtype)
+        sp.plan(1, m, bk, dtype, ((16, 1),))
+    with pytest.raises(ValueError, match=match):
+        sp.launch_on(m, bk, dtype, 16)

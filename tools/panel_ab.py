@@ -22,8 +22,10 @@ each root's own ``chip_smoke.py``, float32:
 * ``sytrd_device_ms``: config 4's whole ``sytrd`` on the device;
   ``headline_device_ms``: ``qr_decomp`` + ``qr_lstsq`` of the
   (32, 512, 512) batch on the device;
+* ``gram_dc_device_ms``: ``eigh_tridiag_dc`` of the Gram batch on the
+  device;
 * ``walls``: host-clock ms, three runs after a warm-up, of config 4's
-  ``eigh`` and of the headline.
+  ``eigh``, of the headline and of the Gram batch's ``eigh_tridiag_dc``.
 
 One JSON line per root, each beside the card's name and power limit, on
 standard output and appended to FILE (default build/panel_ab.jsonl).
@@ -112,9 +114,12 @@ def time_child(root: str, walls: bool) -> dict:
 
     out["sytrd_device_ms"] = cs.cuda_ms(lambda: sytrd_mod.sytrd(sym), 5)
     out["headline_device_ms"] = cs.cuda_ms(headline, 5)
+    out["gram_dc_device_ms"] = cs.cuda_ms(lambda: la.eigh_tridiag_dc(g), 3)
     out["walls"] = {} if not walls else {
         "config 4 eigh (1024, 1024)": cs.wall_ms(lambda: la.eigh(sym)),
-        "qr_decomp + qr_lstsq": cs.wall_ms(headline)}
+        "qr_decomp + qr_lstsq": cs.wall_ms(headline),
+        "eigh_tridiag_dc Gram (32, 512, 512)":
+            cs.wall_ms(lambda: la.eigh_tridiag_dc(g))}
     return out
 
 
