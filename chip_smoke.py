@@ -667,10 +667,6 @@ def sytrd_check(what, c, bk, launch, want, errs):
             "columns")
 
 
-def regime_name(small: bool) -> str:
-    return "shared memory" if small else "global memory"
-
-
 def near_converged(rng, shape):
     """W = U·diag(σ)·(I + (0.1/n)·G) from seeded normals: σ from 10 down to 1
     geometrically, columns nearly orthogonal, as late in a Jacobi
@@ -687,9 +683,10 @@ def near_converged(rng, shape):
 
 def phase2_jacobi(rng, errs):
     """One sweep from V = I, kernel against plain version, at the main
-    path's shapes: (1024, 64, 64) (the small SVD's Rᵀ, a sweep in shared
-    memory) and (8, 512, 512) (config 3's, one launch a round), and
-    (8, 128, 128), which fits shared memory in float32 only. On a
+    path's shapes: (1024, 64, 64) (the small SVD's Rᵀ, one block a matrix)
+    and (8, 512, 512) (config 3's, two waves of clusters of 16), and
+    (8, 128, 128), which one block holds in float32 only, each in the
+    launch of the wrapper's plan. On a
     near-converged W both must agree entry by entry. On a random W (the
     path's first sweep) the kernel must be consistent, W_in·V = W and
     VᵀV = I; how many matrices differ from the plain version there is
@@ -698,8 +695,8 @@ def phase2_jacobi(rng, errs):
         for shape in ((1024, 64, 64), (8, 128, 128), (8, 512, 512)):
             nb, m, n = shape
             unit = JACOBI_C * torch.finfo(dtype).eps * n
-            what = (f"jacobi_sweeps {shape} {dtype} "
-                    f"({regime_name(js.small_regime(m, n, dtype))})")
+            plan = js.card_plan(nb, m, n, dtype, torch.device(DEVICE))
+            what = f"jacobi_sweeps {shape} {dtype} ({js.regime(*plan)})"
             v = torch.eye(n, device=DEVICE, dtype=dtype).repeat(nb, 1, 1)
             w = torch.from_numpy(near_converged(rng, shape)).to(DEVICE, dtype)
             got = js.jacobi_sweeps(w, v, 1)
@@ -736,8 +733,9 @@ def phase2_jacobi(rng, errs):
 
 def phase2_rrqr(rng, errs):
     """Kernel against plain version at the main path's shapes, (1024, 128,
-    128) (config 2's solve, in shared memory) and (32, 512, 512) (global
-    memory), and a tall (3, 100, 60): pivots equal (required in float64;
+    128) (config 2's solve, one block a matrix) and (32, 512, 512) (a
+    cluster a matrix), and a tall (3, 100, 60), each in the launch of the
+    wrapper's plan: pivots equal (required in float64;
     in float32 the matrices whose pivots differ are counted, as two
     roundings of a near-tie of the norms may choose either), R, V and taus
     on the matrices with equal pivots; and A[:, P] = Q·R through the
@@ -748,8 +746,8 @@ def phase2_rrqr(rng, errs):
             a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
             got = rk.rrqr_kernel(a)
             want = rk.rrqr_kernel_ref(a)
-            what = (f"rrqr_kernel {shape} {dtype} "
-                    f"({regime_name(rk.small_regime(m, n, dtype))})")
+            plan = rk.card_plan(nb, m, n, dtype, torch.device(DEVICE))
+            what = f"rrqr_kernel {shape} {dtype} ({rk.regime(*plan, n)})"
             # per matrix: a flip at a near-tie of the norms changes the rest
             same = (got[3] == want[3]).all(dim=-1)
             ndiff = nb - int(same.sum())
@@ -779,6 +777,103 @@ def phase2_rrqr(rng, errs):
                   f"<= {tol:.3e}")
 
 
+def jacobi_launches():
+    """Every launch jacobi_sweeps' plan can choose, each on a shape it
+    takes, in both types: one block a matrix, each cluster size of config
+    3's 512² with V in shared and in global memory, a cluster of 2 (its
+    ring wraps between two blocks), and one launch a round (what no
+    cluster holds)."""
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        out.append(((64, 64, 64), js.launch_on(64, 64, dtype, 1, False),
+                    dtype))
+        out += [((2, 512, 512), js.launch_on(512, 512, dtype, c, vg), dtype)
+                for c, vg in js.placements(512, 512, dtype) if c > 1]
+        out.append(((3, 96, 64), js.launch_on(96, 64, dtype, 2, False),
+                    dtype))
+        out.append(((1, 1024, 1024), js.ROUNDS, dtype))
+    return out
+
+
+def phase2_jacobi_launches(errs):
+    """jacobi_sweeps in every launch its plan can choose, against its plain
+    version on a near-converged W and consistent on a random one, as
+    phase2_jacobi; inputs from a generator of their own."""
+    rng = np.random.default_rng(SEED + 21)
+    for shape, plan, dtype in jacobi_launches():
+        nb, m, n = shape
+        unit = JACOBI_C * torch.finfo(dtype).eps * n
+        what = f"jacobi_sweeps {shape} {dtype} ({js.regime(*plan)})"
+        v = torch.eye(n, device=DEVICE, dtype=dtype).repeat(nb, 1, 1)
+        w = torch.from_numpy(near_converged(rng, shape)).to(DEVICE, dtype)
+        got = js._jacobi_in(w, v, 1, plan)
+        want = js.jacobi_sweeps_ref(w, v, 1)
+        worst = max(maxabs(g - r) / (unit * sc) for g, r, sc in
+                    zip(got, want, (maxabs(w), 1.0, 1.0)))
+        check(worst <= 1.0, f"{what}, near-converged: worst of W, V and off "
+              f"{worst * JACOBI_C:.3f} eps·n (·max|W| on W) <= {JACOBI_C}")
+        if dtype == torch.float32:
+            errs["jacobi_sweeps"] = max(errs["jacobi_sweeps"],
+                                        maxabs(got[0] - want[0]))
+        w = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
+        wk, vk, _ = js._jacobi_in(w, v, 1, plan)
+        cons = maxabs(torch.matmul(w.double(), vk.double()) - wk.double())
+        orth = maxabs(torch.matmul(vk.mT, vk) - v)
+        check(cons <= unit * maxabs(w) and orth <= unit,
+              f"{what}, random: max |W_in·V - W| = {cons:.3e}, max |VᵀV - I|"
+              f" = {orth:.3e}")
+
+
+def rrqr_launches():
+    """Every cluster size rrqr_kernel's plan can choose, on the 512² shape
+    of rrqr_decomp's batch, and one block a matrix on config 2's 128², in
+    both types."""
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        out += [((4, 512, 512), rk.launch_on(512, 512, dtype, c), dtype)
+                for c in rk.placements(512, 512, dtype)]
+        out.append(((64, 128, 128), rk.launch_on(128, 128, dtype, 1), dtype))
+    return out
+
+
+def phase2_rrqr_launches(errs):
+    """rrqr_kernel in every launch its plan can choose, against its plain
+    version as phase2_rrqr; inputs from a generator of their own."""
+    rng = np.random.default_rng(SEED + 22)
+    for shape, plan, dtype in rrqr_launches():
+        nb, m, n = shape
+        what = f"rrqr_kernel {shape} {dtype} ({rk.regime(*plan, n)})"
+        a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
+        got = rk._rrqr_in(a, plan)
+        want = rk.rrqr_kernel_ref(a)
+        # as phase2_rrqr: pivots equal in float64; in float32 the matrices
+        # a near-tie flipped are counted, and A[:, P] = Q·R holds on all
+        same = (got[3] == want[3]).all(dim=-1)
+        ndiff = nb - int(same.sum())
+        if dtype == torch.float64:
+            check(ndiff == 0, f"{what}: pivots equal to the plain version's")
+        else:
+            say(f"{what}: pivots differ from the plain version's in {ndiff} "
+                f"of {nb} matrices")
+        unit = RRQR_C * torch.finfo(dtype).eps * max(m, n)
+        if ndiff < nb:
+            worst = max(maxabs(g[same] - r[same]) / (unit * sc) for g, r, sc
+                        in zip(got[:3], want[:3], (maxabs(a), 1.0, 1.0)))
+            check(worst <= 1.0, f"{what}: worst of R_packed, V and taus "
+                  f"{worst * RRQR_C:.3f} eps·max(M, N) (·max|A| on R) <= "
+                  f"{RRQR_C}")
+            if dtype == torch.float32:
+                errs["rrqr_kernel"] = max(
+                    errs["rrqr_kernel"], maxabs(got[0][same] - want[0][same]))
+        q, r, p = rrqr_mod._rrqr_assemble(*got, True)
+        ap = torch.gather(a, 2, p.long()[:, None, :].expand(a.shape))
+        recon = maxabs(torch.matmul(q, r) - ap)
+        tol = (1e-5 * maxabs(a) * n ** 0.5 if dtype == torch.float32
+               else unit * maxabs(a))
+        check(recon <= tol, f"{what}: max |A[:, P] - Q·R| = {recon:.3e} <= "
+              f"{tol:.3e}")
+
+
 def phase2(rng):
     errs = dict.fromkeys(KERNELS, 0.0)
     phase2_qr(rng, errs)
@@ -787,6 +882,8 @@ def phase2(rng):
     phase2_sytrd(rng, errs)
     phase2_jacobi(rng, errs)
     phase2_rrqr(rng, errs)
+    phase2_jacobi_launches(errs)
+    phase2_rrqr_launches(errs)
     phase2_eigen(rng, errs)
     return errs
 
@@ -2093,6 +2190,52 @@ def sytrd_breakdown(c4, cg) -> dict:
     return out
 
 
+def jacobi_rrqr_breakdown(wj, wl, spd2, a) -> dict:
+    """jacobi_sweeps (one sweep) and rrqr_kernel at the main path's shapes
+    in the plan's launch and, at the 512² shapes, in every other launch the
+    plan can choose (each cluster size; for the sweeps V in shared and in
+    global memory), with the clusters the card holds at once and µs a
+    dependent round or step of one wave."""
+    out = {"jacobi_sweeps": {}, "rrqr_kernel": {}}
+    dev = torch.device(DEVICE)
+    for w in (wj, wl):
+        nb, m, n = w.shape
+        v = torch.eye(n, device=DEVICE).repeat(nb, 1, 1)
+        plan = js.card_plan(nb, m, n, w.dtype, dev)
+        plans = [plan] + ([js.launch_on(m, n, w.dtype, *p)
+                           for p in js.placements(m, n, w.dtype)]
+                          if plan[0] != 1 else [])
+        for p in dict.fromkeys(plans):
+            ms = cuda_ms(lambda p=p: js._jacobi_in(w, v, 1, p), 5)
+            held = js.resident_clusters(p, w.dtype)
+            waves = -(-nb // held)
+            out["jacobi_sweeps"][f"{tuple(w.shape)} {js.regime(*p)}"] = {
+                "ms": ms, "plan": p == plan, "resident_clusters": held,
+                "waves": waves, "round_us": 1e3 * ms / waves / (n - 1)}
+            say(f"jacobi_sweeps {tuple(w.shape)} float32 ({js.regime(*p)}"
+                f"{', the plan' if p == plan else ''}; the card holds {held} "
+                f"such clusters at once: {waves} waves): {ms:.4f} ms a sweep, "
+                f"{1e3 * ms / waves / (n - 1):.3f} µs a round of a wave")
+    for x in (spd2, a):
+        nb, m, n = x.shape
+        plan = rk.card_plan(nb, m, n, x.dtype, dev)
+        plans = [plan] + ([rk.launch_on(m, n, x.dtype, c)
+                           for c in rk.placements(m, n, x.dtype)]
+                          if plan[0] != 1 else [])
+        for p in dict.fromkeys(plans):
+            ms = cuda_ms(lambda p=p: rk._rrqr_in(x, p), 5)
+            held = rk.resident_clusters(p, x.dtype)
+            waves = -(-nb // held)
+            out["rrqr_kernel"][f"{tuple(x.shape)} {rk.regime(*p, n)}"] = {
+                "ms": ms, "plan": p == plan, "resident_clusters": held,
+                "waves": waves, "step_us": 1e3 * ms / waves / min(m, n)}
+            say(f"rrqr_kernel {tuple(x.shape)} float32 ({rk.regime(*p, n)}"
+                f"{', the plan' if p == plan else ''}; the card holds {held} "
+                f"such clusters at once: {waves} waves): {ms:.4f} ms, "
+                f"{1e3 * ms / waves / min(m, n):.3f} µs a step of a wave")
+    return out
+
+
 def launch_totals() -> dict:
     """Each distinct launch of the main path (LOG) timed once on the
     arguments it was first given, restored before every run (a kernel may
@@ -2238,7 +2381,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     by_name["house_panel"].update(house_breakdown(a))
     by_name["sytrd_panel"].update(sytrd_breakdown(c4, cg))
     # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
-    # config 3's Rᵀ (one launch a round), rrqr_kernel at the 512² batch
+    # config 3's Rᵀ (clusters of 16), rrqr_kernel at the 512² batch
     a3, _ = svd_in["cfg3"]
     wl = qr_mod._qr_house_flat(a3, True)[1].mT.contiguous()
     vl = torch.eye(512, device=DEVICE).repeat(wl.shape[0], 1, 1)
@@ -2258,6 +2401,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
         by_name[name]["other_shapes"] = [other]
         say(f"{name} {shape}: kernel {other['ms']:.4f} ms, plain "
             f"{other['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
+    for name, per in jacobi_rrqr_breakdown(wj, wl, spd2, a).items():
+        by_name[name]["by_launch"] = per
     rows += eigen_rows(counts, errs, *geig)
     main = launch_totals()
     for row in rows:

@@ -1,31 +1,16 @@
-// Shared helpers of the nd4js_tpu_torch kernels: a block-wide sum, the
-// Householder reflector of one column, with the sign and zero rules of
-// nd4js_tpu/ops/house_panel.py:43-53, and the launch of a kernel on
-// thread-block clusters.
+// Shared helpers of the nd4js_tpu_torch kernels: the Householder reflector
+// of one column, with the sign and zero rules of
+// nd4js_tpu/ops/house_panel.py:43-53, stores into a cluster peer's shared
+// memory, and the launch of a kernel on thread-block clusters.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <mutex>
 #include <vector>
 
 namespace nd4js {
-
-// Sum of `x` over the whole block. `scratch` holds one value per warp;
-// every thread gets the result. Contains __syncthreads().
-template <typename T>
-__device__ T block_sum(T x, T* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  __syncthreads();  // scratch may still be read by a previous call
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  T total = T(0);
-  for (int w = 0; w < nwarps; ++w) total += scratch[w];
-  return total;
-}
 
 // Scalars of the reflector H = I - tau·v·vᵀ that maps x to beta·e_0,
 // v_0 = 1, v_i = x_i / den below: beta = -sign(x0)·‖x‖ (sign(0) = +1),
@@ -45,6 +30,25 @@ __device__ Reflector<T> make_reflector(T x0, T sigma) {
   const T safe_beta = h.beta == T(0) ? T(1) : h.beta;
   h.tau = nrm == T(0) ? T(0) : (h.beta - x0) / safe_beta;
   return h;
+}
+
+// The address of `p` in the shared memory of cluster rank q, and stores of
+// one value there (into a peer's shared memory: a barrier with release
+// semantics, such as the cluster barrier, publishes them).
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int q) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(q));
+  return r;
+}
+__device__ __forceinline__ void st_remote(uint32_t a, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a), "f"(x) : "memory");
+}
+__device__ __forceinline__ void st_remote(uint32_t a, double x) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;" ::"r"(a), "d"(x) : "memory");
+}
+__device__ __forceinline__ void st_remote(uint32_t a, int x) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;" ::"r"(a), "r"(x) : "memory");
 }
 
 // Shared memory one block may ask for on Hopper (227 KB).

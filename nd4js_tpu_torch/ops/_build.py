@@ -56,10 +56,12 @@ _SIGNATURES = {
     "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "nd4js_sytrd_panel_clusters": (_I, [_I] * 4),
-    "nd4js_jacobi_sweeps_f32": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
-    "nd4js_rrqr_f64": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "nd4js_jacobi_sweeps_f32": (_I, [_P] * 6 + [_I] * 9 + [_P]),
+    "nd4js_jacobi_sweeps_f64": (_I, [_P] * 6 + [_I] * 9 + [_P]),
+    "nd4js_jacobi_clusters": (_I, [_I] * 5),
+    "nd4js_rrqr_f32": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "nd4js_rrqr_f64": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "nd4js_rrqr_clusters": (_I, [_I] * 4),
     "nd4js_schur_small_f32": (_I, [_P] * 5 + [_I] * 6 + [_S, _P]),
     "nd4js_schur_small_f64": (_I, [_P] * 5 + [_I] * 6 + [_S, _P]),
     "nd4js_schur_small_blocks_per_sm": (_I, [_I, _I, _S]),

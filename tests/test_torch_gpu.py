@@ -755,9 +755,89 @@ def test_jacobi_sweeps_kernel_matches_plain_version(cuda, shape, dtype):
     assert float((vk.mT @ vk - v).abs().max()) <= unit
 
 
+# every launch jacobi_sweeps' plan can choose, in both dtypes: one block a
+# matrix (lstsq's 64²), each cluster size of config 3's 512² with V in shared
+# and in global memory, a cluster of 2 (the ring wraps between its two
+# blocks), and one launch a round (what no cluster holds); config 3's batch
+# of 8 at 512² needs two waves of clusters of 16
+JACOBI_LAUNCHES = (
+    [((64, 64, 64), 1, False, dtype) for dtype in DTYPES]
+    + [((2, 512, 512), c, vg, dtype) for dtype in DTYPES
+       for c, vg in js.placements(512, 512, dtype) if c > 1]
+    + [((3, 256, 256), 2, True, torch.float32),
+       ((3, 128, 128), 2, True, torch.float64)]
+    + [((3, 96, 64), 2, False, dtype) for dtype in DTYPES]
+    + [((8, 512, 512), 16, False, torch.float32)]
+    + [((1, 1024, 1024), 0, False, dtype) for dtype in DTYPES])
+
+
+@pytest.mark.parametrize("shape,cluster,vglobal,dtype", JACOBI_LAUNCHES)
+def test_jacobi_sweeps_kernel_in_every_launch(cuda, shape, cluster, vglobal,
+                                              dtype):
+    """One sweep from a near-converged W against the plain version, in a
+    given launch of the kernel; a random W's sweep consistent."""
+    rng = np.random.default_rng(63 + cluster)
+    nb, m, n = shape
+    the_plan = js.launch_on(m, n, dtype, cluster, vglobal) if cluster \
+        else js.ROUNDS
+    w = _on(cuda, _near_converged(rng, shape), dtype)
+    v = torch.eye(n, device=cuda, dtype=dtype).repeat(nb, 1, 1)
+    unit = 64 * torch.finfo(dtype).eps * n
+    before = js.launches
+    got = js._jacobi_in(w, v, 1, the_plan)
+    torch.cuda.synchronize()
+    assert js.launches == before + 1
+    want = js.jacobi_sweeps_ref(w, v, 1)
+    for g, r, scale in zip(got, want, (float(w.abs().max()), 1.0, 1.0)):
+        assert float((g - r).abs().max()) <= unit * scale
+    wr = _on(cuda, rng.standard_normal(shape), dtype)
+    wk, vk, _ = js._jacobi_in(wr, v, 1, the_plan)
+    cons = (wr.double() @ vk.double() - wk.double()).abs().max()
+    assert float(cons) <= unit * float(wr.abs().max())
+    assert float((vk.mT @ vk - v).abs().max()) <= unit
+
+
 # (Nb, M, N) for rrqr_kernel: the first three in shared memory in both
-# dtypes; (2, 300, 260) in global memory in both
+# dtypes; (2, 300, 260) on a cluster in both
 RRQR_SHAPES = [(3, 24, 16), (2, 16, 24), (4, 128, 128), (2, 300, 260)]
+
+# every cluster size rrqr_kernel's plan can choose, on the 512² shape of
+# rrqr_decomp's batch (clusters of 1-4 leave columns in L2 in float32, 1-8
+# in float64); config 2's systems in shared memory; the batch of 32 of
+# 512², one wave of clusters of 3
+RRQR_LAUNCHES = (
+    [((4, 512, 512), c, dtype) for dtype in DTYPES
+     for c in rk.placements(512, 512, dtype)]
+    + [((256, 128, 128), 1, dtype) for dtype in DTYPES]
+    + [((32, 512, 512), 3, torch.float32)])
+
+
+@pytest.mark.parametrize("shape,cluster,dtype", RRQR_LAUNCHES)
+def test_rrqr_kernel_in_every_launch(cuda, shape, cluster, dtype):
+    """The kernel in a given launch against its plain version: pivots equal
+    in float64 (in float32 a near-tie of two norms may pivot either way,
+    and then the rest of that matrix differs), R, V and taus within
+    32·eps·max(M, N)·max|A| on the matrices with equal pivots, and
+    A[:, P] = Q·R by the port's Q build on every matrix."""
+    rng = np.random.default_rng(64 + cluster)
+    nb, m, n = shape
+    a = _on(cuda, rng.standard_normal(shape), dtype)
+    before = rk.launches
+    got = rk._rrqr_in(a, rk.launch_on(m, n, dtype, cluster))
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    want = rk.rrqr_kernel_ref(a)
+    same = (got[3] == want[3]).all(dim=-1)
+    if dtype == torch.float64:
+        assert bool(same.all())
+    unit = 32 * torch.finfo(dtype).eps * max(m, n)
+    amax = float(a.abs().max())
+    if bool(same.any()):
+        for g, r, scale in zip(got[:3], want[:3], (amax, 1.0, 1.0)):
+            assert float((g[same] - r[same]).abs().max()) <= unit * scale
+    q, r, p = rrqr_mod._rrqr_assemble(*got, True)
+    ap = torch.gather(a, 2, p.long()[:, None, :].expand(a.shape))
+    assert float((q @ r - ap).abs().max()) <= unit * amax
 
 
 @pytest.mark.parametrize("shape", RRQR_SHAPES)
