@@ -11,7 +11,9 @@ Phases, each announced by a flushed line at its start and its end:
 1. build: every kernel of the package with one nvcc call, with ptxas's
    registers and shared memory per kernel;
 2. each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the shapes the main path gives it;
+   float64, at the shapes the main path gives it (chol_leaf at batches
+   1024, 32 and 1 in each of its layouts, trevc_solve also with a small
+   bignum on the plan's tiles and on tiles of 1 and 8);
 3. the main path through the public entry points, each path with the
    launch counters set to 0 just before it and read just after:
    ``entry.forward`` at the shapes of ``__graft_entry__.entry()``,
@@ -34,14 +36,18 @@ Phases, each announced by a flushed line at its start and its end:
    arguments) beside the counters;
 4. times with CUDA events: each distinct launch of the log, once, on the
    arguments it was first given, and so each kernel's device time over
-   the main path; each kernel, its plain version, one PyTorch
+   the main path (with each kernel's heaviest distinct launches: shapes,
+   count, ms); each kernel, its plain version, one PyTorch
    library call that computes the same function where there is one, and
    the bound (for bulge_chase_steps and schur_small also ms a dependent
    step); and the wall time of each bench.py entry above, the eigh
    paths beside ``torch.linalg.eigh``, the SVD paths beside
    ``torch.linalg.svd`` and the eigen paths beside ``torch.linalg.eig``
    on the same input (yardsticks the port never calls), with host
-   breakdowns of the headline and of config 4's eigen; sytrd_panel's
+   breakdowns of the headline and of config 4's eigen; chol_leaf also at
+   the (32, 64, 64) and (1, 64, 64) leaves, through its wrapper and on the
+   device alone (a CUDA graph), beside torch.linalg.cholesky and
+   solve_triangular; sytrd_panel's
    column loop and trailing update apart, by cluster size; house_panel
    with and without the column-major scratch.
 
@@ -153,6 +159,9 @@ SCHUR_C = 64
 # matrices of a schur_small batch that its plain version also runs (on the
 # host: one host read a chase step makes it slow on the card)
 SCHUR_SAMPLE = 8
+# launch_totals prints (and the kernels line keeps) each kernel's heaviest
+# distinct launches of the main path, by count × ms
+DISTINCT_SHOWN = 8
 # trevc_solve in float32 against a float64 witness: its distance to the
 # witness within TREVC_C times the float32 plain version's. Over 12 seeds of
 # phase2_trevc's inputs (tools/trevc_witness.py on the H100) the kernel's
@@ -218,6 +227,32 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one ``fn()`` without the host's share: reps
+    calls captured in a CUDA graph, the graph replayed five times between
+    CUDA events. For launches shorter than their host-side wrapper, which
+    cuda_ms then measures instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def bound(flops: float, nbytes: float):
@@ -451,27 +486,53 @@ def spd_garbage_above(rng, nb, n):
 
 
 def phase2_chol(rng, errs):
+    """chol_leaf at the main path's batches: 1024 (config 2's leaves), 32
+    (the 512² batch's and the Gram iterations') and 1 (eigh via_svd's),
+    through the wrapper (its plan) and in every layout of the kernel."""
+    # the batch of 1 from a generator of its own, so that the checks after
+    # this one draw from `rng` the inputs they drew before it was added
+    one = np.random.default_rng(SEED + 13)
     for dtype in (torch.float32, torch.float64):
-        for nb in (1024, 32):
-            a = spd_garbage_above(rng, nb, 64).to(dtype)
+        for nb in (1024, 32, 1):
+            a = spd_garbage_above(one if nb == 1 else rng, nb, 64).to(dtype)
             amax = maxabs(torch.tril(a))
             for with_inv in (False, True):
-                l, li = cl.chol_leaf(a, with_inv)
                 l_ref, li_ref = cl.chol_leaf_ref(a, with_inv)
-                err = maxabs(l - l_ref)
-                tol = TOL[dtype] * amax
-                check(err <= tol and maxabs(torch.triu(l, 1)) == 0.0,
-                      f"chol_leaf ({nb}, 64, 64) {dtype} inv={with_inv}, "
-                      f"upper triangle garbage: max |L - plain| = "
-                      f"{err:.3e} <= {tol:.3e}, zeros above")
-                if with_inv:
-                    ierr = maxabs(li - li_ref)
-                    itol = TOL[dtype] * maxabs(li_ref)
-                    check(ierr <= itol, f"chol_leaf ({nb}, 64, 64) {dtype}: "
-                          f"max |L⁻¹ - plain| = {ierr:.3e} <= {itol:.3e}")
-                    err = max(err, ierr)
-                if dtype == torch.float32:
-                    errs["chol_leaf"] = max(errs["chol_leaf"], err)
+                plan = cl.card_plan(nb, 64, dtype, with_inv, a.device)
+                for warps in (None,) + cl.WARPS:
+                    before = cl.launches
+                    l, li = (cl.chol_leaf(a, with_inv) if warps is None else
+                             cl._chol_leaf_in(a, with_inv, warps))
+                    how = (f"the wrapper, {plan} warps" if warps is None else
+                           f"{warps} warps"
+                           + (", the plan" if warps == plan else ""))
+                    err = maxabs(l - l_ref)
+                    tol = TOL[dtype] * amax
+                    check(cl.launches == before + 1 and err <= tol
+                          and maxabs(torch.triu(l, 1)) == 0.0,
+                          f"chol_leaf ({nb}, 64, 64) {dtype} inv={with_inv} "
+                          f"({how}), upper triangle garbage: one launch; max "
+                          f"|L - plain| = {err:.3e} <= {tol:.3e}, zeros above")
+                    if with_inv:
+                        ierr = maxabs(li - li_ref)
+                        itol = TOL[dtype] * maxabs(li_ref)
+                        check(ierr <= itol and maxabs(torch.triu(li, 1)) == 0.0,
+                              f"chol_leaf ({nb}, 64, 64) {dtype} ({how}): max "
+                              f"|L⁻¹ - plain| = {ierr:.3e} <= {itol:.3e}, zeros "
+                              "above")
+                        err = max(err, ierr)
+                    if dtype == torch.float32:
+                        errs["chol_leaf"] = max(errs["chol_leaf"], err)
+        bad = -torch.eye(4, device=DEVICE, dtype=dtype)[None]
+        for with_inv in (False, True):
+            for warps in (None,) + cl.WARPS:
+                l, li = (cl.chol_leaf(bad, with_inv) if warps is None else
+                         cl._chol_leaf_in(bad, with_inv, warps))
+                nan = bool(torch.isnan(l).any()) and (
+                    bool(torch.isnan(li).any()) if with_inv else li is None)
+                how = "the wrapper" if warps is None else f"{warps} warps"
+                check(nan, f"chol_leaf {dtype} inv={with_inv} ({how}): NaN "
+                      "on a non-SPD block")
 
 
 def packed_lu_residual(a, out, rank) -> float:
@@ -1599,6 +1660,10 @@ def phase2_trevc(rng, errs, dtype):
     witness within max(TOL, TREVC_C × the float32 plain version's)."""
     for n, cluster in ((1024, False), (192, True)):
         args = triangular_pair(rng, n, cluster, dtype)
+        tiles = tv.card_plan(1, n, dtype, args[0].device)
+        say(f"trevc_solve (1, {n}, {n}) {dtype}: the plan's {len(tiles)} "
+            f"tiles, widths {tiles[0][1]} at the right to "
+            f"{max(w for _, w in tiles)}")
         xk = unit_columns(tv.trevc_solve(*args))
         xr = unit_columns(tv.trevc_solve_ref(*args))
         err = unit_gap(xk, xr)
@@ -1617,6 +1682,32 @@ def phase2_trevc(rng, errs, dtype):
               f"{TREVC_C} x the plain version's {pw:.3e}); kernel against "
               f"plain {err:.3e}")
         errs["trevc_solve"] = max(errs["trevc_solve"], err)
+    # a bignum of 30: many columns rescaled, several times a block, on the
+    # plan's tiles and on tiles of 1 and of W_MAX
+    args = list(triangular_pair(np.random.default_rng(SEED + 14), 192, True,
+                                dtype))
+    args[-1] = 30.0
+    xr = unit_columns(tv.trevc_solve_ref(*args))
+    wide = [a.double() if torch.is_tensor(a) else a for a in args]
+    pw = unit_gap(xr, unit_columns(tv.trevc_solve_ref(*wide)))
+    plan = tv.card_plan(1, 192, dtype, args[0].device)
+    for name, tiles in (("the plan", plan), ("tiles of 1", uniform_tiles(192, 1)),
+                        (f"tiles of {tv.W_MAX}",
+                         uniform_tiles(192, tv.W_MAX))):
+        xk = unit_columns(tv._trevc_solve_in(*args, tiles))
+        err = unit_gap(xk, xr)
+        tol = TOL[dtype] if dtype == torch.float64 else \
+            max(TOL[dtype], TREVC_C * pw)
+        check(err <= tol, f"trevc_solve (1, 192, 192) {dtype}, bignum 30, "
+              f"{name} ({len(tiles)} tiles): max |x - plain| over unit "
+              f"columns = {err:.3e} <= {tol:.3e}")
+
+
+def uniform_tiles(n, w):
+    """Tiles of w columns from the right (the leftmost narrower), as the
+    kernel takes them."""
+    return tuple((max(0, k1 - w), k1 - max(0, k1 - w))
+                 for k1 in range(n, 0, -w))
 
 
 def phase2_eigen(rng, errs):
@@ -1989,6 +2080,7 @@ def eigen_rows(counts, errs, s, ab):
             + f", plain {row['plain_ms']:.4f} ms, library none, bound "
             f"{t_bound:.6f} ms ({by})")
         rows.append(row)
+    rows[-1].update(trevc_breakdown(trevc_in))
     # schur_small also at small_win's block and at the whole-matrix route's
     # batch of 64² Hessenberg matrices (its bound from the plain version's
     # work on SCHUR_SAMPLE of them, scaled to the batch)
@@ -2264,12 +2356,107 @@ def launch_totals() -> dict:
         row["main_path_ms"] += n * ms
         row["main_path_launches"] += n
         row["main_path_distinct"] += 1
+        shapes = [list(a.shape) if isinstance(a, torch.Tensor) else a
+                  for a in saved if not isinstance(a, torch.Tensor)
+                  or a.ndim >= 2]
+        row.setdefault("distinct", []).append(
+            {"shapes": shapes, "count": n, "ms": ms})
     for name, row in per.items():
         say(f"{name}: {row['main_path_launches']} launches on the main path, "
             f"{row['main_path_distinct']} distinct, "
             f"{row['main_path_ms']:.4f} ms of device time in all (each "
             "distinct launch timed once)")
+        # the launches that carry the kernel's time, heaviest first
+        heavy = sorted(row.get("distinct", []),
+                       key=lambda d: -d["count"] * d["ms"])
+        row["distinct"] = heavy[:DISTINCT_SHOWN]
+        for d in row["distinct"]:
+            say(f"  {name} {d['shapes']}: {d['count']} launches, "
+                f"{d['ms']:.4f} ms each, {d['count'] * d['ms']:.4f} ms")
+        if len(heavy) > DISTINCT_SHOWN:
+            rest = heavy[DISTINCT_SHOWN:]
+            say(f"  {name}: {len(rest)} more distinct launches, "
+                f"{sum(d['count'] for d in rest)} launches, "
+                f"{sum(d['count'] * d['ms'] for d in rest):.4f} ms")
     return per
+
+
+def chol_leaf_cost(leaf):
+    """(flops, bytes) of chol_leaf with L⁻¹ on a float32 batch (Nb, n, n):
+    n³/3 for the factor and as many for the inverse; A's lower triangle
+    read, L and L⁻¹ written dense."""
+    lb, ln = leaf.shape[0], leaf.shape[-1]
+    return lb * 2 / 3 * ln ** 3, 4 * lb * (ln * (ln + 1) // 2 + 2 * ln * ln)
+
+
+def chol_leaf_rows(leaf, spd512) -> dict:
+    """chol_leaf's device time at config 2's leaf without the host's share,
+    and its times at the leaf shapes that carry most of its main-path
+    launches: the 512² batch's (32, 64, 64) and a batch of one as eigh
+    via_svd's, both with L⁻¹, each beside the library's Cholesky and
+    triangular inverse and the bound."""
+    out = {"device_ms": graph_ms(lambda: cl.chol_leaf(leaf, True)),
+           "other_shapes": []}
+    say(f"chol_leaf {list(leaf.shape)}: device {out['device_ms']:.4f} ms "
+        "(graph replay, no host share)")
+    for x in (spd512[:, :64, :64].contiguous(),
+              spd512[:1, :64, :64].contiguous()):
+        t_bound, by = bound(*chol_leaf_cost(x))
+        eye = torch.eye(64, device=DEVICE).expand(x.shape)
+        other = {
+            "shape": list(x.shape), "with_inv": True,
+            "warps": cl.card_plan(x.shape[0], 64, x.dtype, True, x.device),
+            "ms": cuda_ms(lambda x=x: cl.chol_leaf(x, True), 20),
+            "device_ms": graph_ms(lambda x=x: cl.chol_leaf(x, True)),
+            "plain_ms": cuda_ms(lambda x=x: cl.chol_leaf_ref(x, True), 3),
+            "library_ms": cuda_ms(
+                lambda x=x, e=eye: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky(x), e, upper=False), 20),
+            "bound_ms": t_bound, "bound_by": by}
+        out["other_shapes"].append(other)
+        say(f"chol_leaf {other['shape']} with L⁻¹ ({other['warps']} warps): "
+            f"kernel {other['ms']:.4f} ms through the wrapper, device "
+            f"{other['device_ms']:.4f} ms, plain {other['plain_ms']:.4f} ms, "
+            f"library {other['library_ms']:.4f} ms, bound {t_bound:.6f} ms "
+            f"({by})")
+    # the device time of each layout the plan chooses from, at the three
+    # leaf batches, with and without L⁻¹
+    out["by_warps"] = {}
+    for x in (leaf, spd512[:, :64, :64].contiguous(),
+              spd512[:1, :64, :64].contiguous()):
+        for inv in (True, False):
+            key = f"{list(x.shape)} inv={inv}"
+            out["by_warps"][key] = {
+                w: graph_ms(lambda x=x, inv=inv, w=w:
+                            cl._chol_leaf_in(x, inv, w)) for w in cl.WARPS}
+            say(f"chol_leaf {key}, device ms by warps a block: "
+                + ", ".join(f"{w}: {t:.4f}"
+                            for w, t in out["by_warps"][key].items())
+                + f"; the plan takes "
+                f"{cl.card_plan(x.shape[0], 64, x.dtype, inv, x.device)}")
+    return out
+
+
+def trevc_breakdown(trevc_in) -> dict:
+    """trevc_solve at config 4's shape on the plan's tiles (uniform, of
+    tv.TILE columns) and on uniform tiles of 1, 2 and 8 columns; on the
+    plan's tiles also the contractions alone (stages 1) and the
+    recurrences alone on unit sums (stages 2)."""
+    n = trevc_in[0].shape[-1]
+    plan = tv.card_plan(1, n, trevc_in[0].dtype, trevc_in[0].device)
+    out = {}
+    for name, tiles, stages in (
+            ("plan", plan, 3), ("plan, contractions alone", plan, 1),
+            ("plan, recurrences alone", plan, 2),
+            ("tiles of 1", uniform_tiles(n, 1), 3),
+            ("tiles of 2", uniform_tiles(n, 2), 3),
+            ("tiles of 8", uniform_tiles(n, 8), 3)):
+        out[name] = {"tiles": len(tiles), "ms": cuda_ms(
+            lambda t=tiles, st=stages: tv._trevc_solve_in(*trevc_in, t, st),
+            10)}
+        say(f"trevc_solve (1, {n}, {n}) {name}: {len(tiles)} tiles, "
+            f"{out[name]['ms']:.4f} ms")
+    return {"by_tiling": out}
 
 
 def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
@@ -2286,11 +2473,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     gs_bytes = 4 * (n * n + 2 * n * k)
     # chol_leaf: config 2's first leaf, with the inverse, as the path runs it
     leaf = spd2[:, :64, :64].contiguous()
-    lb, ln = leaf.shape[0], leaf.shape[-1]
-    eye_leaf = torch.eye(ln, device=DEVICE).expand(lb, ln, ln)
-    cl_flops = lb * 2 / 3 * ln ** 3            # factor n³/3 + inverse n³/3
-    # only A's lower triangle is read; L and L⁻¹ are written dense
-    cl_bytes = 4 * lb * (ln * (ln + 1) // 2 + 2 * ln * ln)
+    eye_leaf = torch.eye(64, device=DEVICE).expand(leaf.shape)
+    cl_flops, cl_bytes = chol_leaf_cost(leaf)
     lp_flops = nb * (m * bw ** 2 - bw ** 3 / 3)
     lp_bytes = nb * (4 * 2 * m * bw + 4 * m)   # panel in and out, rank
     gb, gn = spd2.shape[0], spd2.shape[-1]
@@ -2380,6 +2564,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     by_name["house_stripe_t"].update(stripe_breakdown(a))
     by_name["house_panel"].update(house_breakdown(a))
     by_name["sytrd_panel"].update(sytrd_breakdown(c4, cg))
+    by_name["chol_leaf"].update(chol_leaf_rows(leaf, spd512))
     # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
     # config 3's Rᵀ (clusters of 16), rrqr_kernel at the 512² batch
     a3, _ = svd_in["cfg3"]

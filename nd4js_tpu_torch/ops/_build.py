@@ -11,6 +11,7 @@ fallback. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,8 +23,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SMEM_MAX", "build", "check_operand", "launch",
-           "library", "recorder"]
+__all__ = ["NVCC_FLAGS", "SMEM_MAX", "SMS", "SM_SMEM", "build",
+           "check_operand", "launch", "library", "recorder", "sms"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -33,6 +34,10 @@ _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 # shared memory one block may use on Hopper (227 KB), which decides the
 # regime of the kernels that keep a whole matrix there when it fits
 SMEM_MAX = 232448
+# SMs of an H100 SXM: what a launch plan assumes where no card is asked
+SMS = 132
+# shared memory of one Hopper SM, of which 1 KB a resident block is reserved
+SM_SMEM = 233472
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,8 +47,8 @@ _P, _I, _D, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
 # C signatures of csrc/*.cu: every pointer and the stream as c_void_p, a
 # real scalar as a double in both precisions, a byte count as size_t
 _SIGNATURES = {
-    "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _P]),
-    "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _P]),
+    "nd4js_chol_leaf_f32": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    "nd4js_chol_leaf_f64": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     "nd4js_qr_gesv_f32": (_I, [_P, _P] + [_I] * 6 + [_P]),
     "nd4js_qr_gesv_f64": (_I, [_P, _P] + [_I] * 6 + [_P]),
     "nd4js_house_stripe_t_f32": (_I, [_P] * 4 + [_I] * 6 + [_P]),
@@ -67,8 +72,8 @@ _SIGNATURES = {
     "nd4js_schur_small_blocks_per_sm": (_I, [_I, _I, _S]),
     "nd4js_bulge_chase_f32": (_I, [_P] * 5 + [_I] * 12 + [_S, _P]),
     "nd4js_bulge_chase_f64": (_I, [_P] * 5 + [_I] * 12 + [_S, _P]),
-    "nd4js_trevc_solve_f32": (_I, [_P] * 7 + [_I, _I, _D, _P]),
-    "nd4js_trevc_solve_f64": (_I, [_P] * 7 + [_I, _I, _D, _P]),
+    "nd4js_trevc_solve_f32": (_I, [_P] * 8 + [_I] * 4 + [_D, _I, _P]),
+    "nd4js_trevc_solve_f64": (_I, [_P] * 8 + [_I] * 4 + [_D, _I, _P]),
 }
 
 _built = None
@@ -150,6 +155,17 @@ def library():
             fn.argtypes = argtypes
         _lib = lib
     return _lib
+
+
+def sms(device) -> int:
+    """SMs of the CUDA card of ``device`` (needs the card)."""
+    return _sms_of(device.index if device.index is not None
+                   else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_operand(t, name: str, ndim: int):

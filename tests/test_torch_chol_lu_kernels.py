@@ -217,12 +217,16 @@ def test_c_signatures_match_the_extern_c_declarations(name, functions):
             assert ctype is want, (fn, arg)
 
 
-@pytest.mark.parametrize("name,tpu", [
-    ("chol_leaf.cu", "ops/chol_leaf.py::chol_leaf"),
-    ("lu_panel.cu", "ops/lu_panel.py::lu_panel"),
-    ("lu_panel.cu", "ops/lu_panel.py::lu_gesv"),
+@pytest.mark.parametrize("name,tpu,design", [
+    ("chol_leaf.cu", "ops/chol_leaf.py::chol_leaf",
+     "What held the first version back"),
+    ("lu_panel.cu", "ops/lu_panel.py::lu_panel", "simple first version"),
+    ("lu_panel.cu", "ops/lu_panel.py::lu_gesv", "simple first version"),
 ])
-def test_cuda_sources_state_what_they_replace(name, tpu):
+def test_cuda_sources_state_what_they_replace(name, tpu, design):
+    """Each note names the TPU kernel it replaces, its bound on the H100
+    and its design: lu_panel.cu the simple first version, chol_leaf.cu its
+    redesign and what held the first version back."""
     head = (CSRC / name).read_text().split("#include")[0]
     assert tpu in head and "Bound on the H100" in head
-    assert "simple first version" in head
+    assert design in head

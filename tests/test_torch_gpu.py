@@ -358,14 +358,23 @@ def _spd(rng, shape):
     return np.tril(spd) + np.triu(rng.standard_normal(spd.shape) * 1e3, 1)
 
 
-@pytest.mark.parametrize("shape", [(5, 64, 64), (3, 33, 33), (2, 8, 8),
-                                   (1, 1, 1)])
+# the main path's leaf batches (config 2's 1024, the 512² batch's 32,
+# eigh via_svd's 1) and ragged widths; each in the plan's layout (None:
+# through the wrapper) and in every layout of the kernel
+CHOL_SHAPES = [(1024, 64, 64), (32, 64, 64), (1, 64, 64), (5, 64, 64),
+               (3, 33, 33), (2, 8, 8), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", CHOL_SHAPES)
 @pytest.mark.parametrize("with_inv", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_chol_leaf_kernel_matches_plain_version(cuda, shape, with_inv, dtype):
+@pytest.mark.parametrize("warps", (None,) + cl.WARPS)
+def test_chol_leaf_kernel_matches_plain_version(cuda, shape, with_inv, dtype,
+                                                warps):
     a = _on(cuda, _spd(np.random.default_rng(34), shape), dtype)
     before = cl.launches
-    l, li = cl.chol_leaf(a, with_inv)
+    l, li = (cl.chol_leaf(a, with_inv) if warps is None
+             else cl._chol_leaf_in(a, with_inv, warps))
     torch.cuda.synchronize()
     assert cl.launches == before + 1
     l_ref, li_ref = cl.chol_leaf_ref(a, with_inv)
@@ -375,14 +384,29 @@ def test_chol_leaf_kernel_matches_plain_version(cuda, shape, with_inv, dtype):
     if with_inv:
         assert float((li - li_ref).abs().max()) <= \
             TOL[dtype] * float(li_ref.abs().max())
+        assert float(torch.triu(li, 1).abs().max()) == 0.0
     else:
         assert li is None
 
 
-def test_chol_leaf_kernel_gives_nan_on_non_spd(cuda):
+def test_chol_leaf_plan_on_the_card_is_one_of_its_layouts(cuda):
+    for nb in (1, 32, 1024):
+        for dtype in DTYPES:
+            assert cl.card_plan(nb, 64, dtype, True, cuda) in cl.WARPS
+
+
+@pytest.mark.parametrize("warps", (None,) + cl.WARPS)
+@pytest.mark.parametrize("with_inv", [False, True])
+def test_chol_leaf_kernel_gives_nan_on_non_spd(cuda, warps, with_inv):
+    """Through the wrapper (its plan) and in every layout, with and
+    without L⁻¹ (the kernel's two instances of each layout)."""
     a = -torch.eye(4, device=cuda, dtype=torch.float64)[None]
-    l, _ = cl.chol_leaf(a, False)
+    l, li = (cl.chol_leaf(a, with_inv) if warps is None
+             else cl._chol_leaf_in(a, with_inv, warps))
     assert bool(torch.isnan(l).any())
+    assert (li is None) != with_inv
+    if with_inv:
+        assert bool(torch.isnan(li).any())
 
 
 def _panel(rng, shape):
@@ -1076,36 +1100,89 @@ def test_schur_small_kernel_contract_and_eigenvalues(cuda, shape, dtype):
             evr.pop(k)
 
 
-@pytest.mark.parametrize("n,cluster", [(192, True), (256, False),
-                                       (100, True)])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_trevc_solve_kernel_matches_plain_version(cuda, n, cluster, dtype):
-    """n = 100 leaves a ragged tile of columns; the cluster is three equal
-    diagonal entries (rows 5, 10, 70)."""
-    rng = np.random.default_rng(90 + n)
-    tre = np.triu(rng.standard_normal((2, n, n)))
-    tim = np.triu(rng.standard_normal((2, n, n)))
+def _uniform_tiles(n, w):
+    return tuple((max(0, k1 - w), k1 - max(0, k1 - w))
+                 for k1 in range(n, 0, -w))
+
+
+def _triangular_batch(rng, B, n, cluster, dtype, cuda):
+    tre = np.triu(rng.standard_normal((B, n, n)))
+    tim = np.triu(rng.standard_normal((B, n, n)))
     if cluster:
         for i in (10, 70):
             tre[:, i, i], tim[:, i, i] = tre[:, 5, 5], tim[:, 5, 5]
     tre, tim = _on(cuda, tre, dtype), _on(cuda, tim, dtype)
     fi = torch.finfo(dtype)
     small = fi.eps * torch.sqrt((tre ** 2 + tim ** 2).sum((-2, -1))) + fi.tiny
-    args = (tre, tim, torch.diagonal(tre, dim1=-2, dim2=-1),
-            torch.diagonal(tim, dim1=-2, dim2=-1), small, fi.max ** 0.5 / n)
+    return [tre, tim, torch.diagonal(tre, dim1=-2, dim2=-1),
+            torch.diagonal(tim, dim1=-2, dim2=-1), small, fi.max ** 0.5 / n]
+
+
+def _unit_cols(x):
+    nrm = torch.sqrt((x[0].double() ** 2 + x[1].double() ** 2).sum(
+        -2, keepdim=True))
+    nrm = torch.where(nrm == 0, 1.0, nrm)
+    return x[0].double() / nrm, x[1].double() / nrm
+
+
+# (B, n, cluster, bignum): n = 100 leaves a ragged tile of columns, the
+# cluster is three equal diagonal entries (rows 5, 10, 70), a bignum of 30
+# rescales many columns several times a block; config 4's (1, 1024, 1024)
+TREVC_CASES = [(2, 192, True, None), (2, 256, False, None),
+               (2, 100, True, None), (1, 1024, False, None),
+               (2, 100, True, 30.0), (1, 192, True, 30.0)]
+# the plan's tiles (through the wrapper) and tiles of every width that
+# fits one block; config 4's size on the plan's tiles and on 1 and 8
+TREVC_LAUNCHES = [
+    (case, dtype, tiling) for case in TREVC_CASES for dtype in DTYPES
+    for tiling in ["plan"] + list(range(1, 9))
+    if (case[1] != 1024 or tiling in ("plan", 1, 8))
+    and (tiling == "plan" or max(
+        tv.smem_bytes(k0 + w, w, dtype)
+        for k0, w in _uniform_tiles(case[1], tiling)) <= _build.SMEM_MAX)]
+
+
+@pytest.mark.parametrize("case,dtype,tiling", TREVC_LAUNCHES)
+def test_trevc_solve_kernel_matches_plain_version(cuda, case, dtype, tiling):
+    """Unit columns within TOL of the plain version's; at n = 1024 in
+    float32, where the back substitution amplifies rounding by up to ~10³
+    eps in both versions alike, within 8 times the plain version's distance
+    to a float64 witness (the plain version in float64 on the same input),
+    as chip_smoke.py's phase2_trevc."""
+    B, n, cluster, bignum = case
+    args = _triangular_batch(np.random.default_rng(90 + n), B, n, cluster,
+                             dtype, cuda)
+    if bignum is not None:
+        args[-1] = bignum
+    tiles = None if tiling == "plan" else _uniform_tiles(n, tiling)
     before = tv.launches
-    xk = tv.trevc_solve(*args)
+    xk = tv.trevc_solve(*args) if tiles is None \
+        else tv._trevc_solve_in(*args, tiles)
     torch.cuda.synchronize()
     assert tv.launches == before + 1
-    xr = tv.trevc_solve_ref(*args)
-
-    def unit_cols(x):
-        nrm = torch.sqrt((x[0] ** 2 + x[1] ** 2).sum(-2, keepdim=True))
-        return x[0] / nrm, x[1] / nrm
-
-    for g, r in zip(unit_cols(xk), unit_cols(xr)):
-        assert float((g - r).abs().max()) <= TOL[dtype]
     assert bool((torch.tril(xk[0], -1) == 0).all())
+    xr = tv.trevc_solve_ref(*args)
+    gap = max(float((g - r).abs().max())
+              for g, r in zip(_unit_cols(xk), _unit_cols(xr)))
+    if n == 1024 and dtype == torch.float32:
+        wide = [a.double() if torch.is_tensor(a) else a for a in args]
+        xw = _unit_cols(tv.trevc_solve_ref(*wide))
+        pw = max(float((g - r).abs().max())
+                 for g, r in zip(_unit_cols(xr), xw))
+        kw = max(float((g - r).abs().max())
+                 for g, r in zip(_unit_cols(xk), xw))
+        assert kw <= max(TOL[dtype], 8 * pw)
+    else:
+        assert gap <= TOL[dtype]
+
+
+def test_trevc_plan_on_the_card_covers_every_column(cuda):
+    for dtype in DTYPES:
+        tiles = tv.card_plan(1, 1024, dtype, cuda)
+        cover = np.zeros(1024, int)
+        for k0, w in tiles:
+            cover[k0:k0 + w] += 1
+        assert (cover == 1).all()
 
 
 def _eigen_resid(a, lam, vec):
