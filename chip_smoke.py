@@ -13,7 +13,9 @@ Phases, each announced by a flushed line at its start and its end:
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (chol_leaf at batches
    1024, 32 and 1 in each of its layouts, trevc_solve also with a small
-   bignum on the plan's tiles and on tiles of 1 and 8);
+   bignum on the plan's tiles and on tiles of 1 and 8, lu_panel also in
+   every placement its plan can choose, with rank equal in both types,
+   and lu_gesv in every layout);
 3. the main path through the public entry points, each path with the
    launch counters set to 0 just before it and read just after:
    ``entry.forward`` at the shapes of ``__graft_entry__.entry()``,
@@ -49,7 +51,9 @@ Phases, each announced by a flushed line at its start and its end:
    device alone (a CUDA graph), beside torch.linalg.cholesky and
    solve_triangular; sytrd_panel's
    column loop and trailing update apart, by cluster size; house_panel
-   with and without the column-major scratch.
+   with and without the column-major scratch; lu_panel on lu_decomp's
+   four panels in every placement (the plan's marked) and lu_gesv at
+   config 2 in every layout.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -549,48 +553,108 @@ def packed_lu_residual(a, out, rank) -> float:
     return maxabs(torch.matmul(L, U) - torch.gather(a, 1, idx).double())
 
 
+def lu_test_panel(rng, shape):
+    """A random panel with a zero column in the first matrix and tied
+    |pivots| (3 and −3, twice) in column 0 of the second."""
+    a = rng.standard_normal(shape)
+    a[0, :, shape[2] // 2] = 0
+    if shape[0] > 1:
+        a[1, :4, 0] = [1.0, -3.0, 3.0, -3.0]
+        a[1, 4:, 0] = 0.5
+    return a
+
+
+def lu_panel_check(what, a, out, rank, out_ref, rank_ref, errs, dtype):
+    """rank equal to the plain version's (both types: the two round each
+    quotient, product and difference alike), the panel within TOL·max|A|
+    of it, and its packed L·U = A[P]."""
+    amax = maxabs(a)
+    ndiff = int((rank != rank_ref).sum())
+    check(ndiff == 0, f"{what}: rank equal to the plain version's "
+          f"({ndiff} entries differ)")
+    err = maxabs(out - out_ref)
+    tol = TOL[dtype] * amax
+    check(err <= tol, f"{what}: max |panel - plain| = {err:.3e} <= {tol:.3e}")
+    if dtype == torch.float32:
+        errs["lu_panel"] = max(errs["lu_panel"], err)
+    res = packed_lu_residual(a, out, rank)
+    tol = 1e-5 * amax * a.shape[1] ** 0.5
+    check(res <= tol, f"{what}: packed max |L·U - A[P]| = {res:.3e} <= "
+          f"{tol:.3e}")
+
+
 def phase2_lu(rng, errs):
+    """lu_panel at lu_decomp's four panel shapes in the launch of its plan,
+    then in every placement its plan can choose (each cluster size, rows
+    in shared and in global memory) on (2, 512, 128), (3, 136, 40) and
+    (2, 300, 200) (two blocks of columns), and with a NaN candidate at
+    step 3 (no pivot from there on, as the plain version's);
+    lu_gesv at config 2 and K = 4 in its plan, then in every layout
+    (registers, shared, global) that takes (64, 128, 4), (2, 128, 160) and
+    (3, 13, 3); each in float32 and float64. The placements', the NaN's
+    and the layouts' inputs come from a generator of their own, so that
+    the later checks draw the same inputs from ``rng`` as before them."""
+    dev = torch.device(DEVICE)
+    own = np.random.default_rng(SEED + 23)
     for dtype in (torch.float32, torch.float64):
         for m in (512, 384, 256, 128):
             a = torch.from_numpy(rng.standard_normal((32, m, 128))).to(
                 DEVICE, dtype)
+            plan = lp.card_plan(32, m, 128, dtype, dev)
             out, rank = lp.lu_panel(a)
-            out_ref, rank_ref = lp.lu_panel_ref(a)
-            amax = maxabs(a)
-            ndiff = int((rank != rank_ref).sum())
-            what = f"lu_panel (32, {m}, 128) {dtype}"
-            if dtype == torch.float64:
-                check(ndiff == 0, f"{what}: rank equal to the plain version's")
-            else:
-                say(f"{what}: {ndiff} rank entries differ from the plain "
-                    "version's (expected 0)")
-            if ndiff == 0:
-                err = maxabs(out - out_ref)
-                tol = TOL[dtype] * amax
-                check(err <= tol, f"{what}: max |panel - plain| = {err:.3e} "
-                      f"<= {tol:.3e}")
-                if dtype == torch.float32:
-                    errs["lu_panel"] = max(errs["lu_panel"], err)
-            tol = 1e-5 * amax * m ** 0.5
-            for who, o, r in (("kernel", out, rank), ("plain", out_ref,
-                                                      rank_ref)):
-                res = packed_lu_residual(a, o, r)
-                check(res <= tol, f"{what}, {who}: packed max |L·U - A[P]| = "
-                      f"{res:.3e} <= {tol:.3e}")
+            lu_panel_check(f"lu_panel (32, {m}, 128) {dtype} "
+                           f"({lp.regime(*plan, m)})", a, out, rank,
+                           *lp.lu_panel_ref(a), errs, dtype)
+        for shape in ((2, 512, 128), (3, 136, 40), (2, 300, 200)):
+            nb, m, b = shape
+            a = torch.from_numpy(lu_test_panel(own, shape)).to(DEVICE, dtype)
+            want = lp.lu_panel_ref(a)
+            for place in lp.placements(m, b, dtype):
+                launch = lp.launch_on(m, b, dtype, *place)
+                lu_panel_check(f"lu_panel {shape} {dtype} "
+                               f"({lp.regime(*launch, m)})", a,
+                               *lp._lu_panel_in(a, launch), *want, errs,
+                               dtype)
+        a = own.standard_normal((2, 136, 40))
+        a[1, 70, 3] = np.nan
+        a = torch.from_numpy(a).to(DEVICE, dtype)
+        out, rank = lp.lu_panel(a)
+        out_ref, rank_ref = lp.lu_panel_ref(a)
+        same = (out == out_ref) | (torch.isnan(out) & torch.isnan(out_ref))
+        check(bool(torch.equal(rank, rank_ref)) and int((rank[1] < 40).sum())
+              == 3 and bool(same.all()), f"lu_panel (2, 136, 40) {dtype} with "
+              "a NaN at step 3: rank and panel equal to the plain version's, "
+              "no pivot from step 3 on")
         for nb, k in ((1024, 1), (64, 4)):
             a = torch.from_numpy(rng.standard_normal((nb, 128, 128))).to(
                 DEVICE, dtype)
             y = torch.from_numpy(rng.standard_normal((nb, 128, k))).to(
                 DEVICE, dtype)
+            layout = lp.LAYOUTS[lp.gesv_plan(nb, 128, k, dtype)[0]]
             err = solve_check(f"lu_gesv ({nb}, 128, 128) K={k} {dtype}, "
-                              "kernel against plain", a, y, lp.lu_gesv(a, y),
-                              lp.lu_gesv_ref(a, y), dtype)
+                              f"{layout}, kernel against plain", a, y,
+                              lp.lu_gesv(a, y), lp.lu_gesv_ref(a, y), dtype)
             if dtype == torch.float32:
                 errs["lu_gesv"] = max(errs["lu_gesv"], err)
-    x = lp.lu_gesv(torch.ones((1, 8, 8), device=DEVICE),
-                   torch.ones((1, 8, 1), device=DEVICE))
-    check(not bool(torch.isfinite(x).all()),
-          "lu_gesv on an exactly singular system: x is not finite")
+        for nb, n, k in ((64, 128, 4), (2, 128, 160), (3, 13, 3)):
+            a = torch.from_numpy(own.standard_normal((nb, n, n))).to(
+                DEVICE, dtype)
+            y = torch.from_numpy(own.standard_normal((nb, n, k))).to(
+                DEVICE, dtype)
+            want = lp.lu_gesv_ref(a, y)
+            for launch in lp.gesv_layouts(n, k, dtype):
+                solve_check(f"lu_gesv ({nb}, {n}, {n}) K={k} {dtype}, "
+                            f"{lp.LAYOUTS[launch[0]]}, kernel against plain",
+                            a, y, lp._lu_gesv_in(a, y, launch), want, dtype)
+    for dtype in (torch.float32, torch.float64):
+        for launch in lp.gesv_layouts(8, 1, dtype):
+            x = lp._lu_gesv_in(torch.ones((1, 8, 8), device=DEVICE,
+                                          dtype=dtype),
+                               torch.ones((1, 8, 1), device=DEVICE,
+                                          dtype=dtype), launch)
+            check(not bool(torch.isfinite(x).all()),
+                  f"lu_gesv {dtype} {lp.LAYOUTS[launch[0]]} on an exactly "
+                  "singular system: x is not finite")
 
 
 def symmetric(rng, shape):
@@ -2381,6 +2445,48 @@ def launch_totals() -> dict:
     return per
 
 
+def lu_breakdown(a, spd2, y2):
+    """lu_panel on lu_decomp's four panel shapes (32, 512|384|256|128, 128)
+    in every placement its plan can choose (cluster size, rows in shared or
+    in global memory; the clusters of each the card holds at once, the
+    plan's marked), and lu_gesv at config 2 in every layout, float32, CUDA
+    events each. Returns (lu_panel's rows, lu_gesv's rows)."""
+    dev = torch.device(DEVICE)
+    panels, total = [], 0.0
+    for k0 in range(0, a.shape[-1], 128):
+        p = a[:, k0:, k0:k0 + 128].contiguous()
+        nb, m, b = p.shape
+        plan = lp.card_plan(nb, m, b, p.dtype, dev)
+        holds = dict(lp._resident_on(m, b, p.dtype,
+                                     torch.cuda.current_device()))
+        row = {"shape": [nb, m, b], "plan": lp.regime(*plan, m), "by": []}
+        for place in lp.placements(m, b, p.dtype):
+            launch = lp.launch_on(m, b, p.dtype, *place)
+            ms = cuda_ms(lambda: lp._lu_panel_in(p, launch), 5)
+            row["by"].append({"cluster": place[0], "shared": place[1],
+                              "resident": holds[place], "ms": ms,
+                              "plan": launch == plan})
+            if launch == plan:
+                row["ms"] = ms
+        total += row["ms"]
+        say(f"lu_panel {row['shape']} float32, plan {row['plan']}: "
+            f"{row['ms']:.4f} ms; by placement (cluster, memory, held at "
+            "once: ms): " + ", ".join(
+                f"{d['cluster']} {'shared' if d['shared'] else 'global'} "
+                f"{d['resident']}: {d['ms']:.4f}" for d in row["by"]))
+        panels.append(row)
+    say(f"lu_panel on lu_decomp's four panels in their plans: {total:.4f} ms")
+    gesv = []
+    for launch in lp.gesv_layouts(spd2.shape[-1], y2.shape[-1], spd2.dtype):
+        ms = cuda_ms(lambda: lp._lu_gesv_in(spd2, y2, launch), 10)
+        gesv.append({"layout": lp.LAYOUTS[launch[0]], "threads": launch[1],
+                     "smem": launch[2], "ms": ms})
+        say(f"lu_gesv {list(spd2.shape) + [y2.shape[-1]]} float32, "
+            f"{lp.LAYOUTS[launch[0]]} ({launch[1]} threads, {launch[2]} "
+            f"bytes a block): {ms:.4f} ms")
+    return {"panels": panels, "panels_ms": total}, {"by_layout": gesv}
+
+
 def chol_leaf_cost(leaf):
     """(flops, bytes) of chol_leaf with L⁻¹ on a float32 batch (Nb, n, n):
     n³/3 for the factor and as many for the inverse; A's lower triangle
@@ -2565,6 +2671,9 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
     by_name["house_panel"].update(house_breakdown(a))
     by_name["sytrd_panel"].update(sytrd_breakdown(c4, cg))
     by_name["chol_leaf"].update(chol_leaf_rows(leaf, spd512))
+    lu_rows = lu_breakdown(a, spd2, y2)
+    by_name["lu_panel"].update(lu_rows[0])
+    by_name["lu_gesv"].update(lu_rows[1])
     # sytrd_panel also at the Gram batch's first panel, jacobi_sweeps at
     # config 3's Rᵀ (clusters of 16), rrqr_kernel at the 512² batch
     a3, _ = svd_in["cfg3"]

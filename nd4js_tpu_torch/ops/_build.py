@@ -54,10 +54,11 @@ _SIGNATURES = {
     "nd4js_house_stripe_t_f32": (_I, [_P] * 4 + [_I] * 6 + [_P]),
     "nd4js_house_stripe_t_f64": (_I, [_P] * 4 + [_I] * 6 + [_P]),
     "nd4js_house_stripe_smem": (ctypes.c_size_t, [_I] * 7),
-    "nd4js_lu_panel_f32": (_I, [_P, _P, _I, _I, _I, _P]),
-    "nd4js_lu_panel_f64": (_I, [_P, _P, _I, _I, _I, _P]),
-    "nd4js_lu_gesv_f32": (_I, [_P, _P, _I, _I, _I, _P]),
-    "nd4js_lu_gesv_f64": (_I, [_P, _P, _I, _I, _I, _P]),
+    "nd4js_lu_panel_f32": (_I, [_P, _P] + [_I] * 7 + [_P]),
+    "nd4js_lu_panel_f64": (_I, [_P, _P] + [_I] * 7 + [_P]),
+    "nd4js_lu_panel_clusters": (_I, [_I] * 5),
+    "nd4js_lu_gesv_f32": (_I, [_P] * 5 + [_I] * 6 + [_P]),
+    "nd4js_lu_gesv_f64": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "nd4js_sytrd_panel_f32": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "nd4js_sytrd_panel_f64": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "nd4js_sytrd_panel_clusters": (_I, [_I] * 4),

@@ -199,7 +199,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, err, match):
 @pytest.mark.parametrize("name,functions", [
     ("chol_leaf.cu", ["nd4js_chol_leaf_f32", "nd4js_chol_leaf_f64"]),
     ("lu_panel.cu", ["nd4js_lu_panel_f32", "nd4js_lu_panel_f64",
-                     "nd4js_lu_gesv_f32", "nd4js_lu_gesv_f64"]),
+                     "nd4js_lu_panel_clusters", "nd4js_lu_gesv_f32",
+                     "nd4js_lu_gesv_f64"]),
 ])
 def test_c_signatures_match_the_extern_c_declarations(name, functions):
     """Each C function of the new sources is bound in _SIGNATURES with as
@@ -217,16 +218,18 @@ def test_c_signatures_match_the_extern_c_declarations(name, functions):
             assert ctype is want, (fn, arg)
 
 
-@pytest.mark.parametrize("name,tpu,design", [
+@pytest.mark.parametrize("name,tpu,design,before", [
     ("chol_leaf.cu", "ops/chol_leaf.py::chol_leaf",
-     "What held the first version back"),
-    ("lu_panel.cu", "ops/lu_panel.py::lu_panel", "simple first version"),
-    ("lu_panel.cu", "ops/lu_panel.py::lu_gesv", "simple first version"),
+     "What held the first version back", ""),
+    ("lu_panel.cu", "ops/lu_panel.py::lu_panel",
+     "What held the first version back", "Before: 1.6238 ms"),
+    ("lu_panel.cu", "ops/lu_panel.py::lu_gesv",
+     "What held the first version back", "1.7532 ms"),
 ])
-def test_cuda_sources_state_what_they_replace(name, tpu, design):
-    """Each note names the TPU kernel it replaces, its bound on the H100
-    and its design: lu_panel.cu the simple first version, chol_leaf.cu its
-    redesign and what held the first version back."""
+def test_cuda_sources_state_what_they_replace(name, tpu, design, before):
+    """Each note names the TPU kernel it replaces, its bound on the H100,
+    its redesign and what held the first version back; lu_panel.cu also
+    the first version's times."""
     head = (CSRC / name).read_text().split("#include")[0]
     assert tpu in head and "Bound on the H100" in head
-    assert design in head
+    assert design in head and before in head

@@ -14,9 +14,10 @@ solve, and its backward error, which does not loosen with κ(A), within
 N·eps and 8× the plain version's. ``chol_leaf``'s L and L⁻¹ within the
 same TOL·max|A| and TOL·max|L⁻¹|; ``lu_panel``'s factored panel within
 TOL·max|A| and its rank exactly equal (the kernel and the plain version
-round each product and difference alike); ``sytrd_panel`` within
-SYTRD_C·eps·m·max|C| (reason below), its trailing block exactly
-symmetric, and backward stable (``panel_backward_error``);
+round each quotient, product and difference alike), in its plan's launch
+and in every placement the plan can choose; ``lu_gesv`` in every layout;
+``sytrd_panel`` within SYTRD_C·eps·m·max|C| (reason below), its trailing
+block exactly symmetric, and backward stable (``panel_backward_error``);
 ``house_stripe_t`` within the same TOL·max|A| of its plain version
 and of ``house_panel``'s kernel, and in every cluster size of both
 regimes, and on transposed views; the cluster plan's rule, whose
@@ -449,6 +450,70 @@ def test_lu_gesv_kernel_matches_plain_version(cuda, nb, n, k, dtype):
     x = lp.lu_gesv(a, y)
     torch.cuda.synchronize()
     assert lp.launches["lu_gesv"] == before + 1
+    x_ref = lp.lu_gesv_ref(a, y)
+    err = (x - x_ref).abs().amax(dim=(-2, -1)).double().cpu().numpy()
+    xmax = x_ref.abs().amax(dim=(-2, -1)).double().cpu().numpy()
+    tol = np.maximum(TOL[dtype] * np.abs(a64).max(axis=(-2, -1)),
+                     n * torch.finfo(dtype).eps * np.linalg.cond(a64) * xmax)
+    assert (err <= tol).all()
+    assert_backward_stable(a, y, x, x_ref, dtype)
+
+
+# every launch lu_panel's plan can choose (cluster size, rows in shared or
+# in global memory) on the card tests' panels, and every layout of lu_gesv
+# (registers, shared, global) that takes the card tests' systems; pure
+# Python, the same on every machine
+LU_PANEL_LAUNCHES = [(shape, place, dtype) for dtype in DTYPES
+                     for shape in ((2, 512, 128), (3, 136, 40),
+                                   (2, 300, 200))
+                     for place in lp.placements(*shape[1:], dtype)]
+LU_GESV_LAUNCHES = [(shape, launch, dtype) for dtype in DTYPES
+                    for shape in ((2, 128, 4), (2, 128, 160), (3, 13, 3))
+                    for launch in lp.gesv_layouts(*shape[1:], dtype)]
+
+
+@pytest.mark.parametrize("shape,place,dtype", LU_PANEL_LAUNCHES)
+def test_lu_panel_kernel_in_every_placement(cuda, shape, place, dtype):
+    """Rank exactly equal to the plain version's in both types (the kernel
+    rounds each quotient, product and difference as the plain version
+    does), the panel within TOL·max|A|."""
+    nb, m, b = shape
+    a = _on(cuda, _panel(np.random.default_rng(38), shape), dtype)
+    out, rank = lp._lu_panel_in(a, lp.launch_on(m, b, dtype, *place))
+    torch.cuda.synchronize()
+    out_ref, rank_ref = lp.lu_panel_ref(a)
+    assert torch.equal(rank, rank_ref)
+    assert float((out - out_ref).abs().max()) <= TOL[dtype] * float(
+        a.abs().max())
+
+
+@pytest.mark.parametrize("place", [(1, True), (3, True), (3, False)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_panel_kernel_nan_candidate_gives_no_pivot(cuda, place, dtype):
+    """A NaN among a step's candidates: no pivot at that step or after (the
+    NaN spreads through the multipliers), as the plain version's
+    max-then-first-index gives; rank and NaN positions equal."""
+    a = np.random.default_rng(41).standard_normal((2, 136, 40))
+    a[1, 70, 3] = np.nan
+    a = _on(cuda, a, dtype)
+    out, rank = lp._lu_panel_in(a, lp.launch_on(136, 40, dtype, *place))
+    torch.cuda.synchronize()
+    out_ref, rank_ref = lp.lu_panel_ref(a)
+    assert torch.equal(rank, rank_ref)
+    assert int((rank[1] < 40).sum()) == 3  # steps 0-2 only: column 3 holds it
+    torch.testing.assert_close(out, out_ref, rtol=0, equal_nan=True,
+                               atol=TOL[dtype] * float(a[0].abs().max()))
+
+
+@pytest.mark.parametrize("shape,launch,dtype", LU_GESV_LAUNCHES)
+def test_lu_gesv_kernel_in_every_layout(cuda, shape, launch, dtype):
+    nb, n, k = shape
+    rng = np.random.default_rng(39 + n + k)
+    a64 = rng.standard_normal((nb, n, n))
+    a, y = _on(cuda, a64, dtype), _on(cuda, rng.standard_normal((nb, n, k)),
+                                      dtype)
+    x = lp._lu_gesv_in(a, y, launch)
+    torch.cuda.synchronize()
     x_ref = lp.lu_gesv_ref(a, y)
     err = (x - x_ref).abs().amax(dim=(-2, -1)).double().cpu().numpy()
     xmax = x_ref.abs().amax(dim=(-2, -1)).double().cpu().numpy()
