@@ -12,10 +12,12 @@ Phases, each announced by a flushed line at its start and its end:
    registers and shared memory per kernel;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (chol_leaf at batches
-   1024, 32 and 1 in each of its layouts, trevc_solve also with a small
-   bignum on the plan's tiles and on tiles of 1 and 8, lu_panel also in
-   every placement its plan can choose, with rank equal in both types,
-   and lu_gesv in every layout);
+   1024, 32 and 1 of 64², and at config 5's (4096, 1, 1) and (1, 4, 4),
+   in each of its layouts, trevc_solve also with a small bignum on the
+   plan's tiles and on tiles of 1 and 8, lu_panel also in every placement
+   its plan can choose, with rank equal in both types, lu_gesv in every
+   layout, and sytrd_panel's float64 (3, 100, 100) against a long double
+   witness on the host);
 3. the main path through the public entry points, each path with the
    launch counters set to 0 just before it and read just after:
    ``entry.forward`` at the shapes of ``__graft_entry__.entry()``,
@@ -33,9 +35,13 @@ Phases, each announced by a flushed line at its start and its end:
    regime), ``solve`` on config 2's systems, ``rrqr_decomp`` of the 512²
    batch and config 4's ``eigh(method="via_svd")``; then config 4's
    general ``eigen`` of one 1024² matrix, ``schur_decomp`` of its balanced
-   form and ``eigen`` of a (256, 64, 64) batch, each held to bench.py's
-   gates; every launch of those paths is logged (its shapes and
-   arguments) beside the counters;
+   form and ``eigen`` of a (256, 64, 64) batch; then config 5:
+   ``opt.odr_lm`` of the 4096-point poly-4 fit (40 LM iterations, the
+   structured solver, ``chol_leaf`` twice a structured solve) and
+   ``opt.lbfgs_minimize`` of the 128-d Rosenbrock (no kernel), with the
+   host reads an iteration; each held to bench.py's gates; every launch
+   of those paths is logged (its shapes and arguments) beside the
+   counters;
 4. times with CUDA events: each distinct launch of the log, once, on the
    arguments it was first given, and so each kernel's device time over
    the main path (with each kernel's heaviest distinct launches: shapes,
@@ -53,7 +59,10 @@ Phases, each announced by a flushed line at its start and its end:
    column loop and trailing update apart, by cluster size; house_panel
    with and without the column-major scratch; lu_panel on lu_decomp's
    four panels in every placement (the plan's marked) and lu_gesv at
-   config 2 in every layout.
+   config 2 in every layout; config 5's walls (the fit, the L-BFGS run,
+   both) beside ``torch.optim.LBFGS`` on the same Rosenbrock, their host
+   breakdowns and host reads an iteration, the device's busy share under
+   torch.profiler, and the device time of the fit's chol_leaf launches.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -76,7 +85,8 @@ import numpy as np
 import torch
 
 import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-from nd4js_tpu_torch import la
+from nd4js_tpu_torch import la, opt
+from nd4js_tpu_torch.core import host
 from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
 from nd4js_tpu_torch.la import sytrd as sytrd_mod, tridiag_dc
@@ -92,6 +102,9 @@ svd_jac_mod = importlib.import_module("nd4js_tpu_torch.la.svd_jac")
 rrqr_mod = importlib.import_module("nd4js_tpu_torch.la.rrqr")
 schur_mod = importlib.import_module("nd4js_tpu_torch.la.schur")
 eigen_mod = importlib.import_module("nd4js_tpu_torch.la.eigen")
+odr_mod = importlib.import_module("nd4js_tpu_torch.opt.odr")
+tls_mod = importlib.import_module("nd4js_tpu_torch.opt._trust_region_tls")
+lbfgs_mod = importlib.import_module("nd4js_tpu_torch.opt.lbfgs")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -132,6 +145,17 @@ GESV_GLOBAL = (2, 768, 768, 2)
 # to BACKWARD_C·eps·m·max|C| (at most 0.15 of each on the CPU).
 SYTRD_C = 32
 BACKWARD_C = 2
+# The float64 (3, 100, 100), bk = 63 panel, whose late columns move by
+# several SYTRD_C tolerances with the order of summation: kernel and plain
+# version (on the card, and on the host in the CPU's order) are each held
+# to a witness in numpy's long double (64-bit significand), and the
+# kernel's distance to it must stay within the larger of the tolerance and
+# SYTRD_R times the larger of the two plain versions' distances on the
+# same input. tools/sytrd_witness.py over 64 seeds: that ratio reached
+# 2.28 where the kernel stood more than a tolerance away; the plain
+# version on the host stood up to 2.65 times as far as on the card there;
+# a kernel with σ rounded to float32 stood 1e6 tolerances away.
+SYTRD_R = 3
 # the TPU reference's config 4 eigh residual (BENCH_r05.json), printed
 # beside the port's; the gate is bench.py's
 TPU_EIGH_RESIDUAL = 4.351e-4
@@ -489,6 +513,40 @@ def spd_garbage_above(rng, nb, n):
     return torch.tril(spd) + torch.triu(junk * 1e3, 1)
 
 
+def chol_leaf_check(a, with_inv, errs, note=""):
+    """chol_leaf on ``a`` (Nb, n, n) through the wrapper (its plan) and in
+    every layout of the kernel against its plain version: one launch
+    each, L (and L⁻¹) within TOL·max, zeros above the diagonal."""
+    nb, n, _ = a.shape
+    dtype = a.dtype
+    amax = maxabs(torch.tril(a))
+    l_ref, li_ref = cl.chol_leaf_ref(a, with_inv)
+    plan = cl.card_plan(nb, n, dtype, with_inv, a.device)
+    for warps in (None,) + cl.WARPS:
+        before = cl.launches
+        l, li = (cl.chol_leaf(a, with_inv) if warps is None else
+                 cl._chol_leaf_in(a, with_inv, warps))
+        how = (f"the wrapper, {plan} warps" if warps is None else
+               f"{warps} warps" + (", the plan" if warps == plan else ""))
+        what = f"chol_leaf ({nb}, {n}, {n}) {dtype} inv={with_inv} ({how})"
+        err = maxabs(l - l_ref)
+        tol = TOL[dtype] * amax
+        check(cl.launches == before + 1 and err <= tol
+              and maxabs(torch.triu(l, 1)) == 0.0
+              and (li is None) != with_inv,
+              f"{what}{note}: one launch; max |L - plain| = {err:.3e} <= "
+              f"{tol:.3e}, zeros above")
+        if with_inv:
+            ierr = maxabs(li - li_ref)
+            itol = TOL[dtype] * maxabs(li_ref)
+            check(ierr <= itol and maxabs(torch.triu(li, 1)) == 0.0,
+                  f"{what}: max |L⁻¹ - plain| = {ierr:.3e} <= {itol:.3e}, "
+                  "zeros above")
+            err = max(err, ierr)
+        if dtype == torch.float32:
+            errs["chol_leaf"] = max(errs["chol_leaf"], err)
+
+
 def phase2_chol(rng, errs):
     """chol_leaf at the main path's batches: 1024 (config 2's leaves), 32
     (the 512² batch's and the Gram iterations') and 1 (eigh via_svd's),
@@ -499,34 +557,8 @@ def phase2_chol(rng, errs):
     for dtype in (torch.float32, torch.float64):
         for nb in (1024, 32, 1):
             a = spd_garbage_above(one if nb == 1 else rng, nb, 64).to(dtype)
-            amax = maxabs(torch.tril(a))
             for with_inv in (False, True):
-                l_ref, li_ref = cl.chol_leaf_ref(a, with_inv)
-                plan = cl.card_plan(nb, 64, dtype, with_inv, a.device)
-                for warps in (None,) + cl.WARPS:
-                    before = cl.launches
-                    l, li = (cl.chol_leaf(a, with_inv) if warps is None else
-                             cl._chol_leaf_in(a, with_inv, warps))
-                    how = (f"the wrapper, {plan} warps" if warps is None else
-                           f"{warps} warps"
-                           + (", the plan" if warps == plan else ""))
-                    err = maxabs(l - l_ref)
-                    tol = TOL[dtype] * amax
-                    check(cl.launches == before + 1 and err <= tol
-                          and maxabs(torch.triu(l, 1)) == 0.0,
-                          f"chol_leaf ({nb}, 64, 64) {dtype} inv={with_inv} "
-                          f"({how}), upper triangle garbage: one launch; max "
-                          f"|L - plain| = {err:.3e} <= {tol:.3e}, zeros above")
-                    if with_inv:
-                        ierr = maxabs(li - li_ref)
-                        itol = TOL[dtype] * maxabs(li_ref)
-                        check(ierr <= itol and maxabs(torch.triu(li, 1)) == 0.0,
-                              f"chol_leaf ({nb}, 64, 64) {dtype} ({how}): max "
-                              f"|L⁻¹ - plain| = {ierr:.3e} <= {itol:.3e}, zeros "
-                              "above")
-                        err = max(err, ierr)
-                    if dtype == torch.float32:
-                        errs["chol_leaf"] = max(errs["chol_leaf"], err)
+                chol_leaf_check(a, with_inv, errs, ", upper triangle garbage")
         bad = -torch.eye(4, device=DEVICE, dtype=dtype)[None]
         for with_inv in (False, True):
             for warps in (None,) + cl.WARPS:
@@ -537,6 +569,19 @@ def phase2_chol(rng, errs):
                 how = "the wrapper" if warps is None else f"{warps} warps"
                 check(nan, f"chol_leaf {dtype} inv={with_inv} ({how}): NaN "
                       "on a non-SPD block")
+
+
+def phase2_chol_config5(errs):
+    """chol_leaf at config 5's leaves, the per-point blocks Cᵢ (4096, 1, 1)
+    and the Schur complement S (1, 4, 4) of each structured ODR solve, in
+    both types, with and without L⁻¹, through the wrapper and in every
+    layout; inputs from a generator of their own."""
+    gen = np.random.default_rng(SEED + 15)
+    for dtype in (torch.float32, torch.float64):
+        for nb, n in ((4096, 1), (1, 4)):
+            a = spd_garbage_above(gen, nb, n).to(dtype)
+            for with_inv in (False, True):
+                chol_leaf_check(a, with_inv, errs, ", config 5's leaf")
 
 
 def packed_lu_residual(a, out, rank) -> float:
@@ -738,22 +783,81 @@ def phase2_sytrd(rng, errs):
         plan = sp.card_plan(nb, m, bk, c.dtype, c.device)
         if sizes is every:
             sizes = sp.placeable_sizes(m, bk, c.dtype)
+        witness = None
+        if what == "(3, 100, 100)" and c.dtype == torch.float64:
+            witness = (sytrd_panel_wide(c, bk),
+                       sp.sytrd_panel_ref(c.cpu(), bk))
         # the wrapper as the main path calls it, then every size
         sytrd_check(f"sytrd_panel {what} {c.dtype} bk={bk} (the wrapper: "
-                    f"{sp.regime(*plan, m)})", c, bk, None, want, errs)
+                    f"{sp.regime(*plan, m)})", c, bk, None, want, errs,
+                    witness)
         for cluster in sorted(set(sizes) | {plan[0]}):
             launch = sp.launch_on(m, bk, c.dtype, cluster)
             sytrd_check(f"sytrd_panel {what} {c.dtype} bk={bk} ("
                         f"{sp.regime(*launch, m)}"
                         f"{', the plan' if launch == plan else ''})", c, bk,
-                        launch, want, errs)
+                        launch, want, errs, witness)
 
 
-def sytrd_check(what, c, bk, launch, want, errs):
+SYTRD_OUTPUTS = ("C_trailing", "V", "W", "taus", "d", "e")
+
+
+def sytrd_panel_wide(c, bk):
+    """sytrd_panel_ref's arithmetic in numpy's long double on C (a float64
+    tensor), the witness of the float64 panel: (C_trailing, V, W, taus, d,
+    e) as long double arrays. Raises where long double is no wider than
+    float64."""
+    ld = np.longdouble
+    if np.finfo(ld).eps >= np.finfo(np.float64).eps / 1024:
+        raise RuntimeError("numpy's long double is not wider than float64 "
+                           "here: no witness for sytrd_panel")
+    c = c.cpu().numpy().astype(ld)
+    nb, m, _ = c.shape
+    rows = np.arange(m)
+    V, W = np.zeros((nb, m, bk), ld), np.zeros((nb, m, bk), ld)
+    taus, dd, ee = (np.zeros((nb, bk), ld) for _ in range(3))
+    one, zero = ld(1), ld(0)
+    for j in range(bk):
+        col = c[:, :, j] - (V @ W[:, j, :, None])[..., 0] \
+            - (W @ V[:, j, :, None])[..., 0]
+        dd[:, j] = col[:, j]
+        x0 = col[:, j + 1]
+        sigma = np.where(rows > j + 1, col * col, zero).sum(axis=1)
+        nrm = np.sqrt(x0 * x0 + sigma)
+        beta = np.where(sigma == 0, x0, np.where(x0 >= 0, -nrm, nrm))
+        den = x0 - beta
+        v = np.where(rows > j + 1, col / np.where(den == 0, one, den)[:, None],
+                     zero)
+        v[:, j + 1] = one
+        tau = np.where(sigma == 0, zero,
+                       (beta - x0) / np.where(beta == 0, one, beta))
+        ee[:, j], taus[:, j] = beta, tau
+        vc = v[..., None]
+        cv = c @ vc - V @ (W.swapaxes(1, 2) @ vc) \
+            - W @ (V.swapaxes(1, 2) @ vc)
+        w = tau[:, None] * cv[..., 0]
+        w = w - (ld(0.5) * tau * (w * v).sum(axis=1))[:, None] * v
+        V[:, :, j], W[:, :, j] = v, w
+    x = V[:, bk:] @ W[:, bk:].swapaxes(1, 2)
+    full = c[:, bk:, bk:] - x - x.swapaxes(1, 2)
+    trail = np.triu(full) + np.triu(full, 1).swapaxes(1, 2)
+    return trail, V, W, taus, dd, ee
+
+
+def wide_gap(t, wide) -> float:
+    """max |t − wide|, t a tensor, wide a long double array."""
+    return float(np.abs(t.cpu().numpy().astype(np.longdouble) - wide).max())
+
+
+def sytrd_check(what, c, bk, launch, want, errs, witness=None):
     """One sytrd_panel launch (the wrapper's where ``launch`` is None)
     against the plain version's ``want``: every output within
     SYTRD_C·eps·m (·max|C|), the trailing block exactly symmetric, the
-    panel's contract, and τ = 0 where the input asks."""
+    panel's contract, and τ = 0 where the input asks. With a ``witness``
+    (``sytrd_panel_wide``'s outputs, the plain version's on the host) each
+    output is held to the first instead, within the larger of that
+    tolerance and SYTRD_R times the larger of the plain versions'
+    distances to it."""
     dtype = c.dtype
     before = sp.launches
     got = (sp.sytrd_panel(c, bk) if launch is None
@@ -763,14 +867,24 @@ def sytrd_check(what, c, bk, launch, want, errs):
     cmax = maxabs(c)
     unit = SYTRD_C * torch.finfo(dtype).eps * m
     worst = 0.0
-    for name, g, w, scale in zip(
-            ("C_trailing", "V", "W", "taus", "d", "e"), got, want,
-            (cmax, 1.0, cmax, 1.0, cmax, cmax)):
+    for i, (name, g, w, scale) in enumerate(zip(
+            SYTRD_OUTPUTS, got, want, (cmax, 1.0, cmax, 1.0, cmax, cmax))):
         err = maxabs(g - w)
         worst = max(worst, err / scale)
-        check(tuple(g.shape) == tuple(w.shape) and err <= unit * scale,
-              f"{what}: max |{name} - plain| = {err:.3e} <= "
-              f"{unit * scale:.3e}")
+        if witness is None:
+            check(tuple(g.shape) == tuple(w.shape) and err <= unit * scale,
+                  f"{what}: max |{name} - plain| = {err:.3e} <= "
+                  f"{unit * scale:.3e}")
+        else:
+            wide, host = witness
+            kw = wide_gap(g, wide[i])
+            pw, hw = wide_gap(w, wide[i]), wide_gap(host[i], wide[i])
+            tol = max(unit * scale, SYTRD_R * max(pw, hw))
+            check(tuple(g.shape) == tuple(w.shape) and kw <= tol,
+                  f"{what}: max |{name} - long double witness| = {kw:.3e} "
+                  f"<= {tol:.3e} = max({unit * scale:.3e}, {SYTRD_R} x the "
+                  f"plain version's {pw:.3e} (card), {hw:.3e} (host)); "
+                  f"kernel against plain {err:.3e}")
         if dtype == torch.float32:
             errs["sytrd_panel"] = max(errs["sytrd_panel"], err)
     check(torch.equal(got[0], got[0].mT),
@@ -1010,6 +1124,7 @@ def phase2(rng):
     phase2_jacobi_launches(errs)
     phase2_rrqr_launches(errs)
     phase2_eigen(rng, errs)
+    phase2_chol_config5(errs)
     return errs
 
 
@@ -1246,11 +1361,111 @@ def phase3_paths(gen, totals):
     eig = phase3_eigh(totals)
     svd_in = phase3_svd(totals, a, cfg2, eig[0])
     geig = phase3_eigen(totals)
+    cfg5 = phase3_config5(totals)
 
     say(f"launches on the main path: {totals}")
     check(all(c > 0 for c in totals.values()),
           "every kernel of the path was launched")
-    return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in, geig
+    return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in, geig, cfg5
+
+
+# config 5 (bench.py:461-516): the poly-4 model and its true parameters,
+# and the Rosenbrock function, as torch functions
+P_TRUE5 = np.array([0.5, -1.0, 0.25, 2.0], np.float32)
+
+
+def poly4(p, x):
+    return p[0] + x * (p[1] + x * (p[2] + x * p[3]))
+
+
+def rosen(z):
+    return torch.sum(100.0 * (z[1:] - z[:-1] ** 2) ** 2 + (1.0 - z[:-1]) ** 2)
+
+
+def config5_inputs():
+    """bench.py's config 5 inputs (bench.py:472-490), drawn with numpy at
+    its shapes and scales, float32, on the card: x uniform on (−2, 2),
+    M = 4096; y the poly-4 of p_true plus 0.01·N(0, 1); p0 = 0; z0 = −1s
+    in 128 dimensions."""
+    gen = np.random.default_rng(SEED + 20)
+    x = gen.uniform(-2.0, 2.0, 4096).astype(np.float32)
+    y = (poly4(P_TRUE5, x) + 0.01 * gen.standard_normal(4096)) \
+        .astype(np.float32)
+    return tuple(torch.from_numpy(v).to(DEVICE) for v in (
+        x, y, np.zeros(4, np.float32), -np.ones(128, np.float32)))
+
+
+def config5_odr(x, y, p0):
+    return opt.odr_lm(x, y, poly4, p0, max_iter=40)
+
+
+def config5_lbfgs(z0):
+    return opt.lbfgs_minimize(rosen, z0, max_iter=800)
+
+
+def phase3_config5(totals):
+    """Config 5 at bench.py's full size in float32: odr_lm (the structured
+    Schur solver, 40 LM iterations), whose every structured solve runs
+    chol_leaf twice (the (4096, 1, 1) blocks Cᵢ and the (1, 4, 4) S), then
+    lbfgs_minimize of the 128-d Rosenbrock (800 iterations at most, no
+    kernel), each held to bench.py:514's gate; the fit also against the
+    same fit in float64 on the card. Returns the inputs, the distinct
+    chol_leaf launches of the fit with their counts, and its counts."""
+    x, y, p0, z0 = cfg5 = config5_inputs()
+    solves = [0]
+    solve = tls_mod._solve_structured
+
+    def counted(*args):
+        solves[0] += 1
+        return solve(*args)
+
+    tls_mod._solve_structured = counted
+    try:
+        reset_counts()
+        host.reads = 0
+        (p, dx), mse, g, it = config5_odr(x, y, p0)
+        keys = dict(LOG.pending)
+        counts = read_counts()
+        odr_reads = host.reads
+    finally:
+        tls_mod._solve_structured = solve
+    check_counts("config 5 odr_lm (4096 points, poly-4, 40 iterations)",
+                 counts, {"chol_leaf": 2 * solves[0]}, totals)
+    err = maxabs(p.cpu() - torch.from_numpy(P_TRUE5))
+    check(tuple(p.shape) == (4,) and tuple(dx.shape) == (4096,)
+          and p.dtype == torch.float32 and int(it) == 40
+          and bool(torch.isfinite(dx).all()) and bool(torch.isfinite(mse))
+          and err < 0.05,
+          f"config 5 odr_lm: p {p.cpu().numpy()}, {int(it)} iterations, mse "
+          f"{float(mse):.6e}, max |p - p_true| = {err:.3e} < 0.05 "
+          "(bench.py:514)")
+    (p64, _), _, _, _ = opt.odr_lm(x.double(), y.double(), poly4,
+                                   p0.double(), max_iter=40)
+    gap = maxabs(p.double() - p64)
+    check(gap <= 1e-3, f"config 5 odr_lm: max |p - the float64 fit| = "
+          f"{gap:.3e} <= 1e-3")
+    reset_counts()
+    host.reads = 0
+    z, fz, gz, itz = config5_lbfgs(z0)
+    check_counts("config 5 lbfgs_minimize (128-d Rosenbrock)", read_counts(),
+                 {}, totals)
+    lbfgs_reads = host.reads
+    zerr = maxabs(z - 1.0)
+    check(tuple(z.shape) == (128,) and float(fz) < 1e-4 and zerr < 1e-2,
+          f"config 5 lbfgs_minimize: f = {float(fz):.3e} < 1e-4 "
+          f"(bench.py:514), max |z - 1| = {zerr:.3e} < 1e-2, {int(itz)} "
+          "iterations")
+    stats = {"odr_iterations": int(it), "odr_reads": odr_reads,
+             "structured_solves": solves[0],
+             "chol_leaf": counts["chol_leaf"],
+             "lbfgs_iterations": int(itz), "lbfgs_reads": lbfgs_reads}
+    say(f"config 5: odr_lm {int(it)} iterations, {odr_reads} host reads "
+        f"({odr_reads / int(it):.2f} an iteration), {solves[0]} structured "
+        f"solves, chol_leaf {counts['chol_leaf']} launches "
+        + ", ".join(f"{n} of {list(k[3][0][0])}" for k, n in keys.items())
+        + f"; lbfgs_minimize {int(itz)} iterations, {lbfgs_reads} host reads "
+        f"({lbfgs_reads / max(int(itz), 1):.2f} an iteration)")
+    return cfg5, keys, stats
 
 
 def eigh_gate(what, a, w, v, panels, totals, more=None):
@@ -2392,6 +2607,27 @@ def jacobi_rrqr_breakdown(wj, wl, spd2, a) -> dict:
     return out
 
 
+def launch_ms(key) -> float:
+    """Device ms of one distinct launch of the log on the arguments it was
+    first given, restored before every run (a kernel may work in place),
+    less the restore."""
+    fn_name = key[1]
+    device, saved = LOG.first[key]
+    work = [a.clone() if isinstance(a, torch.Tensor) else a for a in saved]
+    pairs = [(w, a) for w, a in zip(work, saved)
+             if isinstance(a, torch.Tensor)]
+
+    def restore():
+        for w, a in pairs:
+            w.copy_(a)
+
+    def run():
+        restore()
+        _build.launch(fn_name, device, *work)
+
+    return cuda_ms(run, 3) - cuda_ms(restore, 3)
+
+
 def launch_totals() -> dict:
     """Each distinct launch of the main path (LOG) timed once on the
     arguments it was first given, restored before every run (a kernel may
@@ -2400,22 +2636,9 @@ def launch_totals() -> dict:
     per = {k: {"main_path_ms": 0.0, "main_path_launches": 0,
                "main_path_distinct": 0} for k in KERNELS}
     for key, n in LOG.count.items():
-        name, fn_name = key[:2]
-        device, saved = LOG.first[key]
-        work = [a.clone() if isinstance(a, torch.Tensor) else a
-                for a in saved]
-        pairs = [(w, a) for w, a in zip(work, saved)
-                 if isinstance(a, torch.Tensor)]
-
-        def restore(pairs=pairs):
-            for w, a in pairs:
-                w.copy_(a)
-
-        def run(fn_name=fn_name, device=device, work=work, restore=restore):
-            restore()
-            _build.launch(fn_name, device, *work)
-
-        ms = cuda_ms(run, 3) - cuda_ms(restore, 3)
+        name = key[0]
+        saved = LOG.first[key][1]
+        ms = launch_ms(key)
         row = per[name]
         row["main_path_ms"] += n * ms
         row["main_path_launches"] += n
@@ -2565,7 +2788,129 @@ def trevc_breakdown(trevc_in) -> dict:
     return {"by_tiling": out}
 
 
-def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
+def torch_lbfgs(z0):
+    """torch.optim.LBFGS with its strong-Wolfe line search on the
+    Rosenbrock from z0, to max|g| ≤ 1e-8 or 800 iterations with a memory of
+    8, as lbfgs_minimize runs: a yardstick the port never calls."""
+    z = z0.clone().requires_grad_(True)
+    o = torch.optim.LBFGS([z], lr=1, max_iter=800, history_size=8,
+                          tolerance_grad=1e-8, line_search_fn="strong_wolfe")
+
+    def closure():
+        o.zero_grad()
+        f = rosen(z)
+        f.backward()
+        return f
+
+    o.step(closure)
+    return z.detach(), o.state[z]["n_iter"]
+
+
+def device_busy(fn):
+    """(device ms, wall ms) of one call of ``fn`` under torch.profiler,
+    after a warm-up: the device time of every kernel and copy it ran, and
+    the host clock around it, the profiler's own cost included. The device
+    ms is None when the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device's own events (kernels, copies) only, as torch's table adds
+    # them: a CPU op's self device time is its kernels' time over again
+    dev = sum(e.self_device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)) / 1e3
+    return (dev or None), wall
+
+
+def config5_times(cfg5):
+    """Config 5's wall times (three runs after a warm-up): the ODR fit, the
+    L-BFGS run and both, beside torch.optim.LBFGS on the same Rosenbrock;
+    host breakdowns of each; the host reads an iteration over the timed
+    runs; the device's busy share over the fit and over 100 L-BFGS
+    iterations (torch.profiler); and the time of the fit's chol_leaf
+    launches, each distinct launch on its first arguments: by CUDA events as
+    launch_totals times it (``ms``; at these sizes the launch's host time)
+    and on the device alone (``device_ms``, a CUDA graph of 20 launches).
+    Returns (walls, chol_leaf's config 5 part)."""
+    (x, y, p0, z0), keys, stats = cfg5
+    per = []
+    for k, n in keys.items():
+        device, saved = LOG.first[k]
+        work = [a.clone() if isinstance(a, torch.Tensor) else a
+                for a in saved]
+        per.append({"shapes": list(k[3][0][0]), "dtype": k[3][0][1],
+                    "count": n, "ms": launch_ms(k),
+                    "device_ms": graph_ms(lambda k=k, d=device, w=work:
+                                          _build.launch(k[1], d, *w))})
+    part = {"launches": sum(d["count"] for d in per),
+            "ms": sum(d["count"] * d["ms"] for d in per),
+            "device_ms": sum(d["count"] * d["device_ms"] for d in per),
+            "distinct": per} | stats
+    say(f"chol_leaf on config 5's fit: {part['launches']} launches, "
+        f"{part['ms']:.4f} ms by events, {part['device_ms']:.4f} ms on the "
+        "device alone: " + ", ".join(
+            f"{d['shapes']} {d['count']} x ({d['ms']:.4f}, "
+            f"{d['device_ms']:.4f}) ms" for d in per))
+    zt, n_iter = torch_lbfgs(z0)
+    say(f"torch.optim.LBFGS on config 5's Rosenbrock: f = "
+        f"{float(rosen(zt)):.3e} after {n_iter} iterations")
+    host.reads = 0
+    wall = {"config 5 odr_lm (4096 points, 40 iterations)":
+                wall_ms(lambda: config5_odr(x, y, p0))}
+    odr_reads = host.reads / 4
+    host.reads = 0
+    wall["config 5 lbfgs_minimize (128-d Rosenbrock)"] = \
+        wall_ms(lambda: config5_lbfgs(z0))
+    lbfgs_reads = host.reads / 4
+    part["reads_an_iteration"] = {
+        "odr_lm": odr_reads / stats["odr_iterations"],
+        "lbfgs_minimize": lbfgs_reads / stats["lbfgs_iterations"]}
+    say(f"config 5 host reads a run over the timed runs: odr_lm "
+        f"{odr_reads:.0f} ({odr_reads / stats['odr_iterations']:.2f} an "
+        f"iteration), lbfgs_minimize {lbfgs_reads:.0f} "
+        f"({lbfgs_reads / stats['lbfgs_iterations']:.2f} an iteration)")
+    part["busy"] = {}
+    for what, fn in (("odr_lm", lambda: config5_odr(x, y, p0)),
+                     ("lbfgs_minimize, 100 iterations",
+                      lambda: opt.lbfgs_minimize(rosen, z0, max_iter=100))):
+        dev, ms = device_busy(fn)
+        part["busy"][what] = {"device_ms": dev, "wall_ms": ms}
+        say(f"config 5 {what} under torch.profiler: "
+            + ("no device time seen, busy share not measured" if dev is None
+               else f"kernels and copies {dev:.3f} ms on the device of "
+               f"{ms:.3f} ms "
+               f"wall, busy share {dev / ms:.3f} (a lower bound: the "
+               "profiler's own host time is in the wall)"))
+    wall |= {
+            "config 5 (both)":
+                wall_ms(lambda: (config5_odr(x, y, p0), config5_lbfgs(z0))),
+            "torch.optim.LBFGS (128-d Rosenbrock), yardstick":
+                wall_ms(lambda: torch_lbfgs(z0))}
+    host_breakdown(
+        "config 5 odr_lm", lambda: config5_odr(x, y, p0),
+        [(odr_mod, "tls_more_lambda_step",
+          "Newton step and λ iteration"),
+         (tls_mod, "_solve_structured", "of which structured solves"),
+         (tls_mod, "_chol_core", "of which Cholesky (chol_leaf)"),
+         (odr_mod, "_jx", "∂f/∂x by jvp")],
+        ("tls_more_lambda_step", "_jx"))
+    host_breakdown(
+        "config 5 lbfgs_minimize", lambda: config5_lbfgs(z0),
+        [(lbfgs_mod, "lbfgs_hv", "two-loop H·g"),
+         (lbfgs_mod, "wolfe_line_search", "line search with f and ∇f"),
+         (lbfgs_mod, "lbfgs_update", "curvature pair")],
+        ("lbfgs_hv", "wolfe_line_search", "lbfgs_update"))
+    return wall, part
+
+
+def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig,
+           cfg5):
     a, _ = batch
     a1, y1 = cfg1
     spd2, y2 = cfg2
@@ -2817,6 +3162,8 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig):
         + f"; sum {sum(lpanels):.4f}; whole lu_decomp on the device "
         f"{cuda_ms(lambda: la.lu_decomp(a), 3):.4f}")
     wall |= eigen_walls(*geig)
+    cfg5_wall, by_name["chol_leaf"]["config5"] = config5_times(cfg5)
+    wall |= cfg5_wall
     return rows, wall
 
 
@@ -2836,10 +3183,11 @@ def main():
     with phase("2 kernels against their plain versions"):
         errs = phase2(rng)
     with phase("3 main path"):
-        counts, batch, cfg1, cfg2, spd512, eig, svd_in, geig = phase3(gen)
+        counts, batch, cfg1, cfg2, spd512, eig, svd_in, geig, cfg5 = \
+            phase3(gen)
     with phase("4 times"):
         rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig,
-                            svd_in, geig)
+                            svd_in, geig, cfg5)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():

@@ -24,10 +24,16 @@ rank-revealing QR and solves (``la.rrqr_decomp``, ``la.rrqr_lstsq``,
 ``rrqr_kernel``; and general eigen (``la.hessenberg_decomp``,
 ``la.schur_decomp``, ``la.schur_eigenvals``, ``la.schur_eigen``,
 ``la.eigen``, ``la.eigenvals``, ``la.eigen_balance_pre``) with
-``schur_small``, ``bulge_chase_steps`` and ``trevc_solve``.
+``schur_small``, ``bulge_chase_steps`` and ``trevc_solve``; the strong
+RRQR and URV (``la.srrqr_decomp_full``, ``la.urv_decomp_full``,
+``la.urv_lstsq``, ``la.lstsq(method="urv")``), ``la.tri_inv`` and the
+``scan``/``inv`` solves; ``dt``; and ``opt`` up to config 5: the line
+searches, L-BFGS, LM, dogleg and orthogonal distance regression, whose
+structured solve runs ``chol_leaf`` on the card.
 """
-from . import config
+from . import config, dt
 from . import la
+from . import opt
 from . import entry
 
 __version__ = "0.1.0"

@@ -12,6 +12,13 @@ back to Householder when its orthogonality defect is over the contract.
 
 Square systems up to 256² in ``qr_lstsq_fused`` are one launch of the
 ``qr_gesv`` kernel. The GEMMs are ``torch.matmul`` at full precision.
+
+``_qr_core`` is the single-matrix QR that the optimisers and the strong
+rank-revealing QR call (``nd4js_tpu/la/qr.py:40-141``): an unblocked
+Householder panel in plain tensor code (a Python loop over columns where
+the JAX package has a ``fori_loop``), the compact-WY T by its column
+recurrence, and the same blocked trailing updates. The JAX package builds
+it in XLA, not with a kernel, and so does the port.
 """
 from __future__ import annotations
 
@@ -39,6 +46,98 @@ _PANEL = 128
 # to Householder, since the last reset: one count per call, as the
 # decision is one for the whole batch.
 auto_branches = {"cholqr2": 0, "householder": 0}
+
+
+def _householder_panel(p: torch.Tensor):
+    """Unblocked Householder QR of one panel ``p`` (m, b), m >= b.
+
+    Returns (V, taus, R_panel): V (m, b) unit-diagonal reflectors (zeros
+    above the diagonal), taus (b,), and the transformed panel whose top
+    b rows are the triangular factor.
+    """
+    m, b = p.shape
+    rows = torch.arange(m, device=p.device)
+    cols = torch.arange(b, device=p.device)
+    V = torch.zeros_like(p)
+    taus = p.new_zeros((b,))
+    for j in range(b):
+        x = p[:, j]
+        x0 = x[j]
+        sigma = torch.where(rows > j, x * x, 0.0).sum()
+        nrm = torch.sqrt(x0 * x0 + sigma)
+        beta = torch.where(x0 >= 0, -nrm, nrm)
+        denom = x0 - beta
+        safe_den = torch.where(denom == 0, 1.0, denom)
+        v = torch.where(rows > j, x / safe_den, 0.0)
+        v = torch.where(rows == j, 1.0, v)
+        safe_beta = torch.where(beta == 0, 1.0, beta)
+        tau = torch.where(nrm == 0, 0.0, (beta - x0) / safe_beta)
+        # apply H = I − tau·v·vᵀ to the remaining panel columns
+        w = torch.where(cols > j, tau * mm(v[None], p)[0], 0.0)
+        p = p - v[:, None] * w[None, :]
+        # column j becomes beta·e_j (R part); rows above j keep R values
+        newc = torch.where(rows == j, beta, 0.0)
+        newc = torch.where(rows < j, p[:, j], newc)
+        p = torch.cat([p[:, :j], newc[:, None], p[:, j + 1:]], 1)
+        V[:, j] = v
+        taus[j] = tau
+    return V, taus, p
+
+
+def _form_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Compact-WY T factor of one reflector store (m, b):
+    H_1···H_b = I − V·T·Vᵀ, T upper triangular, by the column recurrence
+    T[:j, j] = −τ_j·T·(VᵀV)[:, j]."""
+    b = V.shape[1]
+    W = mm(mt(V), V)                                    # (b, b) Gram
+    cols = torch.arange(b, device=V.device)
+    T = V.new_zeros((b, b))
+    for j in range(b):
+        col = -taus[j] * mm(T, W[:, j, None])[:, 0]
+        col = torch.where(cols < j, col, 0.0)
+        T[:, j] = torch.where(cols == j, taus[j], col)
+    return T
+
+
+def _qr_factor(a: torch.Tensor, panel: int = _PANEL):
+    """Blocked factorisation of one matrix (M, N). Returns
+    (R_packed, [(k, V, T), ...])."""
+    M, N = a.shape
+    K = min(M, N)
+    vts = []
+    for k in range(0, K, panel):
+        b = min(panel, K - k)
+        V, taus, pdone = _householder_panel(a[k:, k:k + b])
+        T = _form_t(V, taus)
+        vts.append((k, V, T))
+        trail = a[k:, k + b:]
+        if k + b < N:
+            trail = trail - mm(V, mm(mt(T), mm(mt(V), trail)))
+        a = torch.cat([a[:k], torch.cat([a[k:, :k], pdone, trail], 1)], 0)
+    return a, vts
+
+
+def _apply_q(vts, B: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """B ← Q·B (or Qᵀ·B) for one matrix. Q = Π_i (I − V_i·T_i·V_iᵀ),
+    panels applied in reverse for Q, forward for Qᵀ."""
+    order = vts if transpose else list(reversed(vts))
+    for k, V, T in order:
+        sub = B[k:, :]
+        w = mm(mt(V), sub)
+        w = mm(mt(T), w) if transpose else mm(T, w)
+        B = torch.cat([B[:k], sub - mm(V, w)], 0)
+    return B
+
+
+def _qr_core(a: torch.Tensor, economic: bool):
+    """Householder QR of one matrix (M, N): Q (M, K or M), R (K or M, N)."""
+    M, N = a.shape
+    K = min(M, N)
+    r, vts = _qr_factor(a)
+    ncols = K if economic else M
+    q = _apply_q(vts, torch.eye(M, ncols, dtype=a.dtype, device=a.device))
+    r = torch.triu(r[:K] if economic else r)
+    return q, r
 
 
 def _form_t_batched(V: torch.Tensor, taus: torch.Tensor):

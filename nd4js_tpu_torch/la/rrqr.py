@@ -9,9 +9,12 @@ replaced by the identity before the triangular solve and the solution
 is zeroed there after, which gives the reference's "zero the trailing
 rows" answer with fixed shapes.
 
-The single-matrix path with exact norms (``_rrqr_factor``, ``_build_q``,
-``_rrqr_core``), a different pivot rule, waits for the ``opt/`` slice
-(ROADMAP.md).
+The single-matrix path that the optimisers and the strong RRQR call
+(``_rrqr_factor``, ``_build_q``, ``_rrqr_core``;
+``nd4js_tpu/la/rrqr.py:43-105``, ``:149-155``) recomputes the exact
+trailing column norms at every step, a different pivot rule from the
+kernel's downdate, so it does not go through the kernel: it is plain
+tensor code, as the JAX package builds it in XLA.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from ..core.batch import batched
 from ..core.mm import mm, mt
 from ..ops.rrqr_kernel import rrqr_kernel
 from .permute import unpermute_rows
-from .qr import _form_t_batched
+from .qr import _form_t, _form_t_batched
 from .singular_matrix_solve_error import SingularMatrixSolveError
 from .tri import _triu_solve
 
@@ -33,6 +36,73 @@ __all__ = ["rrqr_decomp", "rrqr_decomp_full", "rrqr_rank", "rrqr_solve",
            "rrqr_lstsq"]
 
 _PANEL = 128
+
+
+def _rrqr_factor(a: torch.Tensor):
+    """Column-pivoted Householder factorisation of one matrix (M, N), the
+    exact trailing column norms recomputed at every step and the first
+    of equal norms taken. Returns (R_packed, V, taus, perm) with
+    A[:, perm] = Q·R."""
+    M, N = a.shape
+    K = min(M, N)
+    dev = a.device
+    rows = torch.arange(M, device=dev)
+    colv = torch.arange(N, device=dev)
+    V = a.new_zeros((M, K))
+    taus = a.new_zeros((K,))
+    perm = torch.arange(N, dtype=torch.int32, device=dev)
+    for j in range(K):
+        # exact trailing column norms over rows >= j
+        nrm2 = torch.where(rows[:, None] >= j, a * a, 0.0).sum(0)
+        p = torch.argmax(torch.where(colv >= j, nrm2, -torch.inf))
+        # swap columns j <-> p
+        swap = torch.where(colv == j, p, torch.where(colv == p, j, colv))
+        a = a[:, swap]
+        perm = perm[swap]
+        # Householder on column j, rows >= j
+        x = a[:, j]
+        x0 = x[j]
+        sigma = torch.where(rows > j, x * x, 0.0).sum()
+        nrm = torch.sqrt(x0 * x0 + sigma)
+        beta = torch.where(x0 >= 0, -nrm, nrm)
+        den = x0 - beta
+        safe_den = torch.where(den == 0, 1.0, den)
+        v = torch.where(rows > j, x / safe_den, 0.0)
+        v = torch.where(rows == j, 1.0, v)
+        safe_beta = torch.where(beta == 0, 1.0, beta)
+        tau = torch.where(nrm == 0, 0.0, (beta - x0) / safe_beta)
+        w = torch.where(colv > j, tau * mm(v[None], a)[0], 0.0)
+        a = a - v[:, None] * w[None, :]
+        newc = torch.where(rows == j, beta, 0.0)
+        newc = torch.where(rows < j, a[:, j], newc)
+        a = torch.cat([a[:, :j], newc[:, None], a[:, j + 1:]], 1)
+        V[:, j] = v
+        taus[j] = tau
+    return a, V, taus, perm
+
+
+def _build_q(V: torch.Tensor, taus: torch.Tensor, ncols: int):
+    """Q (M, ncols) of one matrix from its stored reflectors by
+    compact-WY panels of 128, applied in reverse (GEMMs)."""
+    M, K = V.shape
+    B = torch.eye(M, ncols, dtype=V.dtype, device=V.device)
+    for k in reversed(range(0, K, _PANEL)):
+        b = min(_PANEL, K - k)
+        Vp = V[k:, k:k + b]
+        T = _form_t(Vp, taus[k:k + b])
+        sub = B[k:, :]
+        B = torch.cat([B[:k], sub - mm(Vp, mm(T, mm(mt(Vp), sub)))], 0)
+    return B
+
+
+def _rrqr_core(a: torch.Tensor, economic: bool):
+    """Column-pivoted QR of one matrix by :func:`_rrqr_factor`:
+    (Q, R, perm) with A[:, perm] = Q·R."""
+    M, N = a.shape
+    K = min(M, N)
+    r, V, taus, perm = _rrqr_factor(a)
+    q = _build_q(V, taus, K if economic else M)
+    return q, torch.triu(r[:K] if economic else r), perm
 
 
 def _rrqr_assemble(r, V, taus, perm, economic: bool):

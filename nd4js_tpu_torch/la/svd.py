@@ -17,9 +17,15 @@ from ..core.mm import mm, mt
 from .singular_matrix_solve_error import SingularMatrixSolveError
 from .svd_gram import svd_gram
 from .svd_jac import svd_jac_1sided
+from .urv import urv_decomp_full, urv_lstsq
 
 __all__ = ["svd_decomp", "svd_rank", "svd_solve", "svd_lstsq", "rank",
            "lstsq"]
+
+
+# the methods whose JAX modules the port lacks
+_UNPORTED = {"blocked": "nd4js_tpu/la/svd_block_jac.py's svd_jac_blocked",
+             "dc": "nd4js_tpu/la/svd_dc.py's svd_dc"}
 
 
 def svd_decomp(a, method: str = "auto", device=None, **kw):
@@ -38,10 +44,10 @@ def svd_decomp(a, method: str = "auto", device=None, **kw):
         return svd_jac_1sided(a, device=device, **kw)
     if method == "gram":
         return svd_gram(a, device=device, **kw)
-    if method in ("blocked", "dc"):
+    if method in _UNPORTED:
         raise NotImplementedError(
-            f"svd method {method!r} is not ported yet (ROADMAP.md, modules "
-            "to port, item 7)")
+            f"svd method {method!r} is not ported yet: it is "
+            f"{_UNPORTED[method]}")
     raise ValueError(f"unknown method {method!r}")
 
 
@@ -91,12 +97,12 @@ def rank(a, tol=None, device=None):
 
 def lstsq(a, y, rcond=None, method: str = "svd", device=None):
     """Minimum-norm least squares. method 'svd' (the default):
-    ``svd_decomp`` then ``svd_lstsq``. 'urv' needs the complete orthogonal
-    decomposition, which is not ported yet."""
+    ``svd_decomp`` then ``svd_lstsq``; 'urv': the complete orthogonal
+    decomposition, the same minimum-norm solution (``rcond`` does not
+    apply: the strong RRQR decides the rank)."""
     if method == "urv":
-        raise NotImplementedError(
-            "lstsq method 'urv' is not ported yet (ROADMAP.md, modules to "
-            "port, item 4: la/urv.py after rrqr)")
+        u, r, v, rk = urv_decomp_full(a, device=device)
+        return urv_lstsq(u, r, v, rk, y)
     if method != "svd":
         raise ValueError(f"unknown method {method!r}")
     u, sv, v = svd_decomp(a, device=device)

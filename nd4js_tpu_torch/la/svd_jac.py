@@ -13,8 +13,10 @@ one get U completed to an orthonormal basis by a Householder QR.
 
 Returns (U, sv, V) with A = U·diag(sv)·V (V is what NumPy calls Vᵀ).
 ``_rotation`` and ``_brent_luk_shuffle`` serve ``svd_gram``'s finishing
-sweeps. The JAX package's XLA-only paths and the two-sided variants are
-not ported yet (ROADMAP.md, modules to port, item 7).
+sweeps. The JAX package's XLA-only paths (``_jacobi_core``,
+``_svd_square``, ``_svd_1sided_core``) and the wrappers
+``svd_jac_classic``, ``svd_jac_2sided`` and ``svd_jac_2sided_blocked``
+of ``nd4js_tpu/la/svd_jac.py`` are not ported yet.
 """
 from __future__ import annotations
 

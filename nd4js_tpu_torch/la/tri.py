@@ -1,12 +1,21 @@
-"""Triangular extractors, inversion and blocked solves, the counterpart
-of ``nd4js_tpu/la/tri.py``: ``tril``/``triu``, ``_tril_inv_core``
-(log-depth nilpotent product), ``_tril_solve_blocked``,
-``_triu_solve_blocked`` and the public solves with ``method="block"``.
-The ``scan`` and ``inv`` methods are not ported yet (ROADMAP.md,
-modules to port, item 2).
+"""Triangular extractors, inversion and solves, the counterpart of
+``nd4js_tpu/la/tri.py``: ``tril``/``triu``, ``_tril_inv_core`` and
+``tri_inv`` (log-depth nilpotent product), and the solves by three
+methods:
 
-All work is batched GEMMs (``core.mm``); no triangular-solve library
-call stands in for them.
+  * ``"block"`` (the default): blocked substitution, all diagonal-block
+    inverses in one batched GEMM tree (``_tril_solve_blocked``,
+    ``_triu_solve_blocked``);
+  * ``"scan"``: row-by-row substitution, the classical algorithm and the
+    accuracy reference (``_tril_solve_scan``, a Python loop over rows
+    where the JAX package has a ``lax.scan``);
+  * ``"inv"``: one GEMM with the explicit inverse.
+
+All work is batched tensor code (``core.mm``); no triangular-solve
+library call stands in for it. ``_tril_solve.core`` and
+``_triu_solve.core`` solve on tensors of one leading batch axis (or none)
+without the public wrappers' conversions, where the JAX package calls
+``triu_solve.core``.
 """
 from __future__ import annotations
 
@@ -18,8 +27,8 @@ from ..core.batch import batched
 from ..core.debug import dcheck_finite
 from ..core.mm import mm
 
-__all__ = ["tril", "triu", "tril_solve", "triu_solve", "tril_t_solve",
-           "triu_t_solve"]
+__all__ = ["tril", "triu", "tri_inv", "tril_solve", "triu_solve",
+           "tril_t_solve", "triu_t_solve"]
 
 
 def tril(a, k: int = 0, device=None) -> torch.Tensor:
@@ -80,6 +89,32 @@ def _tril_inv_core(L: torch.Tensor) -> torch.Tensor:
     # componentwise across factors; one polish squares that residual
     X = X + mm(X, eye - mm(L, X))
     return torch.tril(X)
+
+
+def tri_inv(a, lower: bool = True, device=None) -> torch.Tensor:
+    """Inverse of a triangular matrix (..., n, n), batched over leading
+    dims. An array-like ``a`` goes to ``device`` (default
+    ``config.default_device``)."""
+    a = as_tensor(a, device)
+    a = a.to(default_float_for(a.dtype))
+    if lower:
+        return _tril_inv_core(a)
+    # reversing both axes makes U lower triangular
+    return _tril_inv_core(a.flip(-2, -1)).flip(-2, -1)
+
+
+def _tril_solve_scan(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Forward substitution row by row (``nd4js_tpu/la/tri.py:125-139``):
+    x_i = (y_i − L[i, :]·x) / L[i, i], with the rows of x not yet solved
+    still zero. L (..., n, n), y (..., n, K)."""
+    n = L.shape[-2]
+    lead = torch.broadcast_shapes(L.shape[:-2], y.shape[:-2])
+    x = y.new_zeros(lead + y.shape[-2:])
+    for i in range(n):
+        li = L[..., i, :]                                   # (..., n)
+        acc = mm(li[..., None, :], x)[..., 0, :]            # (..., K)
+        x[..., i, :] = (y[..., i, :] - acc) / L[..., i, i, None]
+    return x
 
 
 def _diag_blocks(T: torch.Tensor, nb: int, b: int) -> torch.Tensor:
@@ -159,11 +194,19 @@ def _triu_solve_blocked(U: torch.Tensor, y: torch.Tensor,
     return torch.cat(xs, dim=-2)[..., :n, :]
 
 
-def _check_method(name: str, method: str) -> None:
-    if method != "block":
-        raise NotImplementedError(
-            f"{name} method {method!r} is not ported yet "
-            "(ROADMAP.md, modules to port, item 2)")
+def _solve_core(T: torch.Tensor, y: torch.Tensor, method: str,
+                lower: bool = True) -> torch.Tensor:
+    if method == "scan":
+        if not lower:
+            return _tril_solve_scan(T.flip(-2, -1), y.flip(-2)).flip(-2)
+        return _tril_solve_scan(T, y)
+    if method == "inv":
+        if not lower:
+            return mm(_tril_inv_core(T.flip(-2, -1)).flip(-2, -1), y)
+        return mm(_tril_inv_core(T), y)
+    if method == "block":
+        return (_tril_solve_blocked if lower else _triu_solve_blocked)(T, y)
+    raise ValueError(f"unknown method {method!r}")
 
 
 def _operands(T, y, device):
@@ -175,29 +218,27 @@ def _operands(T, y, device):
 
 
 @batched((2, 2))
-def _tril_solve(L: torch.Tensor, y: torch.Tensor, method: str):
-    _check_method("tril_solve", method)
-    return _tril_solve_blocked(L, y)
+def _tril_solve(L: torch.Tensor, y: torch.Tensor, method: str = "block"):
+    return _solve_core(L, y, method)
 
 
 @batched((2, 2))
-def _triu_solve(U: torch.Tensor, y: torch.Tensor, method: str):
-    _check_method("triu_solve", method)
-    x = _triu_solve_blocked(U, y)
+def _triu_solve(U: torch.Tensor, y: torch.Tensor, method: str = "block"):
+    x = _solve_core(U, y, method, lower=False)
     dcheck_finite(x, "triu_solve x (singular diagonal?)")
     return x
 
 
 def tril_solve(L, y, method: str = "block", device=None) -> torch.Tensor:
     """Solve L @ x = y with L lower-triangular (..., N, N), y (..., N, K);
-    leading dims broadcast. Only ``method="block"`` is ported so far.
+    leading dims broadcast; ``method`` is "block", "scan" or "inv".
     Array-likes go to ``device`` (default ``config.default_device``)."""
     return _tril_solve(*_operands(L, y, device), method)
 
 
 def triu_solve(U, y, method: str = "block", device=None) -> torch.Tensor:
     """Solve U @ x = y with U upper-triangular (..., N, N), y (..., N, K);
-    leading dims broadcast. Only ``method="block"`` is ported so far.
+    leading dims broadcast; ``method`` is "block", "scan" or "inv".
     Array-likes go to ``device`` (default ``config.default_device``)."""
     return _triu_solve(*_operands(U, y, device), method)
 

@@ -49,8 +49,14 @@ def test_triangular_solves_match_jax_with_broadcasting(fn):
     _close(got, want, np.abs(want).max(), np.float64)
     np.testing.assert_array_equal(la.tril(_t(t)).numpy(), np.tril(t))
     np.testing.assert_array_equal(la.triu(_t(t), 1).numpy(), np.triu(t, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(la, fn)(_t(t), _t(y), method="scan")
+    # the row-by-row and explicit-inverse methods, ported with the opt slice
+    for method in ("scan", "inv"):
+        want = np.asarray(getattr(jla, fn)(t, y, method=method))
+        got = getattr(la, fn)(_t(t), _t(y), method=method)
+        assert got.shape == want.shape
+        _close(got, want, np.abs(want).max(), np.float64)
+    with pytest.raises(ValueError):
+        getattr(la, fn)(_t(t), _t(y), method="nope")
 
 
 @functools.lru_cache(maxsize=None)

@@ -233,7 +233,8 @@ def test_triu_solve_blocked_matches_jax(n, block, dtype, tol):
 
 
 def test_triu_solve_broadcasts_like_jax():
-    """Public triu_solve with leading dims (2, 1) x (3,), method block."""
+    """Public triu_solve with leading dims (2, 1) x (3,), methods block and
+    scan; an unknown method raises."""
     rng = np.random.default_rng(9)
     U = _well_conditioned_r(rng, (2, 1), 40, np.float64)
     y = rng.standard_normal((3, 40, 4))
@@ -241,8 +242,11 @@ def test_triu_solve_broadcasts_like_jax():
     got = tri.triu_solve(_t(U), _t(y), method="block").numpy()
     assert got.shape == want.shape == (2, 3, 40, 4)
     np.testing.assert_allclose(got, want, atol=1e-11 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tri.triu_solve(_t(U), _t(y), method="scan")
+    want = np.asarray(jtri.triu_solve(U, y, method="scan"))
+    got = tri.triu_solve(_t(U), _t(y), method="scan").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-11 * np.abs(want).max())
+    with pytest.raises(ValueError):
+        tri.triu_solve(_t(U), _t(y), method="nope")
 
 
 @pytest.mark.parametrize("np_dtype,want", [

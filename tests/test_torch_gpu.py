@@ -1,5 +1,5 @@
 """The port's CUDA kernels and its QR, Cholesky, LU, symmetric eigen, SVD,
-rank-revealing QR and general eigen slices on the card.
+rank-revealing QR, general eigen and optimisation slices on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine without
 them, skipping the JAX-based tests/conftest.py:
@@ -35,8 +35,11 @@ orthogonal) and over 8 steps entry by entry within TOL (a long bulge train
 amplifies rounding); ``schur_small`` by its
 contract (64·eps·W) and its eigenvalues against the plain version's
 (rounding may flip a deflation decision, so T itself is not compared);
-``trevc_solve``'s unit columns within TOL of the plain version's; and the
-general eigen slice under bench.py's config 4 gate.
+``trevc_solve``'s unit columns within TOL of the plain version's; the
+general eigen slice under bench.py's config 4 gate; ``chol_leaf`` at config
+5's (4096, 1, 1) and (1, 4, 4); a short ``odr_lm`` and ``lbfgs_minimize``
+in float64 within 1e-8 of the CPU port's; and config 5 under bench.py's
+gate.
 """
 import importlib
 
@@ -44,7 +47,8 @@ import numpy as np
 import pytest
 import torch
 
-from nd4js_tpu_torch import la
+from nd4js_tpu_torch import la, opt
+from nd4js_tpu_torch.core import host
 from nd4js_tpu_torch.la import qr
 from nd4js_tpu_torch.ops import _build
 from nd4js_tpu_torch.ops import chol_leaf as cl
@@ -360,10 +364,12 @@ def _spd(rng, shape):
 
 
 # the main path's leaf batches (config 2's 1024, the 512² batch's 32,
-# eigh via_svd's 1) and ragged widths; each in the plan's layout (None:
-# through the wrapper) and in every layout of the kernel
+# eigh via_svd's 1), ragged widths, and config 5's leaves (the per-point
+# blocks Cᵢ of the 4096-point ODR fit and its 4 × 4 Schur complement S);
+# each in the plan's layout (None: through the wrapper) and in every layout
+# of the kernel
 CHOL_SHAPES = [(1024, 64, 64), (32, 64, 64), (1, 64, 64), (5, 64, 64),
-               (3, 33, 33), (2, 8, 8), (1, 1, 1)]
+               (3, 33, 33), (2, 8, 8), (1, 1, 1), (4096, 1, 1), (1, 4, 4)]
 
 
 @pytest.mark.parametrize("shape", CHOL_SHAPES)
@@ -1308,3 +1314,84 @@ def test_config4_eigen_meets_the_bench_gate(cuda):
     assert tv.launches == before[2] + 1
     resid = float(_eigen_resid(a, lam, vec).max())
     assert resid <= 1e-4 * float(a.abs().max()) * 1024 ** 0.5
+
+
+def _poly4(p, x):
+    return p[0] + x * (p[1] + x * (p[2] + x * p[3]))
+
+
+def _rosen(z):
+    return torch.sum(100.0 * (z[1:] - z[:-1] ** 2) ** 2 + (1.0 - z[:-1]) ** 2)
+
+
+def _poly4_data(m, dtype):
+    rng = np.random.default_rng(40)
+    p_true = np.array([0.5, -1.0, 0.25, 2.0])
+    x = rng.uniform(-2.0, 2.0, m)
+    y = _poly4(p_true, x) + 0.01 * rng.standard_normal(m)
+    return x.astype(dtype), y.astype(dtype), p_true
+
+
+def test_odr_lm_on_the_card_matches_the_cpu_port(cuda):
+    """Ten LM iterations of a 256-point poly-4 ODR fit in float64: p, Δx
+    and the mse within 1e-8 of the CPU port's (two summation orders), the
+    same iterations, and the structured solves' Cholesky leaves on the
+    kernel, two launches a solve."""
+    x, y, _ = _poly4_data(256, np.float64)
+    want = opt.odr_lm(x, y, _poly4, np.zeros(4), max_iter=10, device="cpu")
+    before = cl.launches
+    got = opt.odr_lm(x, y, _poly4, np.zeros(4), max_iter=10, device=cuda)
+    torch.cuda.synchronize()
+    launched = cl.launches - before
+    assert launched > 0 and launched % 2 == 0
+    assert int(got[3]) == int(want[3]) == 10
+    for g, w in zip(got[0], want[0]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-8 * float(w.abs().max())
+    assert abs(float(got[1]) - float(want[1])) <= 1e-8 * float(want[1])
+
+
+def test_lbfgs_minimize_on_the_card_matches_the_cpu_port(cuda):
+    """Thirty L-BFGS iterations of a 16-d Rosenbrock in float64, the
+    gradient by torch.func: x and f within 1e-8 of the CPU port's."""
+    z0 = -np.ones(16)
+    want = opt.lbfgs_minimize(_rosen, z0, max_iter=30, device="cpu")
+    got = opt.lbfgs_minimize(_rosen, z0, max_iter=30, device=cuda)
+    assert int(got[3]) == int(want[3]) == 30
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-8
+    assert abs(float(got[1]) - float(want[1])) <= 1e-8 * float(want[1])
+
+
+def test_f_closing_over_a_card_tensor_is_taken_as_f(cuda):
+    """An f that closes over data on the card (0.5·‖A·z − b‖²) is taken
+    as f, its gradient by torch.func, and lbfgs_minimize on the card
+    reaches the CPU port's least-squares solution."""
+    rng = np.random.default_rng(41)
+    a, b = rng.standard_normal((20, 5)), rng.standard_normal(20)
+    runs = []
+    for dev in ("cpu", cuda):
+        at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+        def f(z, at=at, bt=bt):
+            r = at @ z - bt
+            return 0.5 * (r * r).sum()
+        runs.append(opt.lbfgs_minimize(f, np.zeros(5), max_iter=200,
+                                       device=dev)[0].cpu())
+    want = np.linalg.lstsq(a, b, rcond=None)[0]
+    assert float((runs[1] - runs[0]).abs().max()) <= 1e-8
+    assert np.abs(runs[1].numpy() - want).max() < 1e-6
+
+
+def test_config5_on_the_card_through_the_bench_gate(cuda):
+    """bench.py's config 5 at full size in float32 (bench.py:461-516):
+    max|p − p_true| < 0.05 and f < 1e-4, one host read an LM iteration
+    of the driver plus the λ iteration's."""
+    x, y, p_true = _poly4_data(4096, np.float32)
+    before = host.reads
+    (p, dx), mse, g, it = opt.odr_lm(x, y, _poly4, np.zeros(4, np.float32),
+                                     max_iter=40, device=cuda)
+    assert host.reads - before <= 40 * 36
+    z, fz, gz, itz = opt.lbfgs_minimize(_rosen, -np.ones(128, np.float32),
+                                        max_iter=800, device=cuda)
+    assert p.is_cuda and p.dtype == torch.float32 and int(it) == 40
+    assert float((p.cpu() - torch.from_numpy(p_true)).abs().max()) < 0.05
+    assert float(fz) < 1e-4

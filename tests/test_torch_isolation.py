@@ -72,6 +72,20 @@ def test_the_general_eigen_modules_and_kernels_are_among_those_checked():
     assert {"bulge_chase.cu", "schur_small.cu", "trevc_solve.cu"} <= sources
 
 
+def test_dt_and_the_opt_modules_are_among_those_checked():
+    """``dt``, the single-matrix ``la`` internals and every module of
+    ``opt`` are found by the walk above, so they too import without JAX,
+    and by the source scans below."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"dt", "core/host", "la/srrqr", "la/urv", "opt/__init__",
+            "opt/optimization_error", "opt/polyquad", "opt/_tree",
+            "opt/line_search/__init__", "opt/line_search/_engine",
+            "opt/line_search/_wolfe", "opt/_lbfgs_solver",
+            "opt/_lbfgsb_solver", "opt/lbfgs", "opt/_trust_region", "opt/lm",
+            "opt/dogleg", "opt/_trust_region_tls", "opt/odr"} <= found
+
+
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         assert not _top_level_imports(path) & set(FORBIDDEN), path

@@ -174,7 +174,7 @@ def test_svd_decomp_routing_and_unported_methods():
     uj, sj, vj = la.svd_decomp(_t(a), method="jacobi")
     assert torch.equal(sa, sj) and torch.equal(ua, uj)
     for method in ("blocked", "dc"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="nd4js_tpu/la/svd_"):
             la.svd_decomp(_t(a), method=method)
     with pytest.raises(ValueError):
         la.svd_decomp(_t(a), method="nope")
@@ -240,8 +240,17 @@ def test_svd_rank_rank_and_svd_solve():
 
 
 def test_lstsq_urv_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="urv"):
-        la.lstsq(np.eye(3), np.ones((3, 1)), method="urv", device=CPU)
+    """lstsq(method="urv") was refused until the opt slice ported la/urv;
+    it now gives the minimum-norm solution, as the JAX package's does (a
+    rank-deficient batch, against JAX and numpy's pseudo-inverse)."""
+    rng = np.random.default_rng(341)
+    a = rng.standard_normal((2, 9, 3)) @ rng.standard_normal((2, 3, 6))
+    y = rng.standard_normal((2, 9, 2))
+    x = la.lstsq(a, y, method="urv", device=CPU).numpy()
+    jx = np.asarray(jla.lstsq(a, y, method="urv"))
+    tol = 1e-10 * np.abs(jx).max()
+    assert np.abs(x - jx).max() <= tol
+    assert np.abs(x - np.linalg.pinv(a) @ y).max() <= tol
 
 
 @functools.lru_cache(maxsize=None)
