@@ -33,9 +33,17 @@ Phases, each announced by a flushed line at its start and its end:
    ``svd_lstsq`` on rank-384 matrices by 'gram' and by one-sided Jacobi,
    ``lstsq`` of a (1024, 128, 64) batch (the Jacobi kernel's default
    regime), ``solve`` on config 2's systems, ``rrqr_decomp`` of the 512²
-   batch and config 4's ``eigh(method="via_svd")``; then config 4's
-   general ``eigen`` of one 1024² matrix, ``schur_decomp`` of its balanced
-   form and ``eigen`` of a (256, 64, 64) batch; then config 5:
+   batch and config 4's ``eigh(method="via_svd")``; then the rest of
+   ``la``: ``svd_decomp`` by 'dc' and by 'blocked' on the 512² batch and
+   on config 3 (the U completions that fire counted, so their
+   ``house_panel`` launches checked), ``bidiag_decomp`` of config 3,
+   ``ldl_decomp`` + ``ldl_solve`` on config 2's systems,
+   ``pldlp_decomp`` + ``pldlp_solve`` on symmetric indefinite ones of the
+   same shape, ``svd_jac_2sided`` and ``svd_jac_classic`` on (8, 96, 64),
+   and ``RNG(seed).ortho`` and ``la.rand_ortho`` of (32, 512, 512), each
+   printing its ``house_panel`` and ``chol_leaf`` launches; then config
+   4's general ``eigen`` of one 1024² matrix, ``schur_decomp`` of its
+   balanced form and ``eigen`` of a (256, 64, 64) batch; then config 5:
    ``opt.odr_lm`` of the 4096-point poly-4 fit (40 LM iterations, the
    structured solver, ``chol_leaf`` twice a structured solve) and
    ``opt.lbfgs_minimize`` of the 128-d Rosenbrock (no kernel), with the
@@ -60,7 +68,9 @@ Phases, each announced by a flushed line at its start and its end:
    with and without the column-major scratch; lu_panel on lu_decomp's
    four panels in every placement (the plan's marked) and lu_gesv at
    config 2 in every layout; config 5's walls (the fit, the L-BFGS run,
-   both) beside ``torch.optim.LBFGS`` on the same Rosenbrock, their host
+   both) beside ``torch.optim.LBFGS`` on the same Rosenbrock, the rest of
+   ``la``'s configurations beside ``torch.linalg.svd`` (the walls above)
+   and ``torch.linalg.ldl_factor`` + ``ldl_solve``, their host
    breakdowns and host reads an iteration, the device's busy share under
    torch.profiler, and the device time of the fit's chol_leaf launches.
 
@@ -85,7 +95,7 @@ import numpy as np
 import torch
 
 import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-from nd4js_tpu_torch import la, opt
+from nd4js_tpu_torch import la, opt, rand
 from nd4js_tpu_torch.core import host
 from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
@@ -105,6 +115,8 @@ eigen_mod = importlib.import_module("nd4js_tpu_torch.la.eigen")
 odr_mod = importlib.import_module("nd4js_tpu_torch.opt.odr")
 tls_mod = importlib.import_module("nd4js_tpu_torch.opt._trust_region_tls")
 lbfgs_mod = importlib.import_module("nd4js_tpu_torch.opt.lbfgs")
+svd_dc_mod = importlib.import_module("nd4js_tpu_torch.la.svd_dc")
+svd_block_mod = importlib.import_module("nd4js_tpu_torch.la.svd_block_jac")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -295,13 +307,15 @@ def maxabs(t) -> float:
     return float(t.abs().max())
 
 
-def solve_check(what: str, a, y, x, x_ref, dtype) -> float:
+def solve_check(what: str, a, y, x, x_ref, dtype,
+                mult=BACKWARD_MULT) -> float:
     """Hold the solutions x of square systems to their reference x_ref,
     per system, and return max |x - x_ref|.
 
     The backward error ‖A·x − y‖₂/(‖A‖₂·‖x‖₂) (worst right-hand side) does
-    not depend on κ(A): it must be at most N·eps and at most BACKWARD_MULT
-    times the reference's (floored at eps). x itself must lie within
+    not depend on κ(A): it must be at most N·eps and, unless ``mult`` is
+    None, at most ``mult`` times the reference's (floored at eps). x
+    itself must lie within
     TOL·max|A| of x_ref, or within the forward-error estimate
     N·eps·κ₂(A)·max|x| where that is larger: two backward-stable solves
     that round differently disagree in x by up to κ(A) times their
@@ -320,7 +334,8 @@ def solve_check(what: str, a, y, x, x_ref, dtype) -> float:
         return (res / (sv[:, :1] * np.linalg.norm(xs, axis=-2))).max(-1)
 
     be, be_ref = backward(x64), backward(xr64)
-    be_tol = np.minimum(n * eps, BACKWARD_MULT * np.maximum(be_ref, eps))
+    be_tol = np.full(be.shape, n * eps) if mult is None else \
+        np.minimum(n * eps, mult * np.maximum(be_ref, eps))
     w = int(np.argmax(be / be_tol))
     check(bool((be <= be_tol).all()),
           f"{what}: backward error, worst system {w}: {be[w]:.3e} <= "
@@ -1360,6 +1375,7 @@ def phase3_paths(gen, totals):
 
     eig = phase3_eigh(totals)
     svd_in = phase3_svd(totals, a, cfg2, eig[0])
+    svd_in |= phase3_la_rest(totals, a, cfg2, svd_in)
     geig = phase3_eigen(totals)
     cfg5 = phase3_config5(totals)
 
@@ -1697,6 +1713,145 @@ def phase3_svd(totals, a, cfg2, sym):
     say(f"config 4 via_svd residual {recon:.3e}; the TPU reference's "
         f"eigh {TPU_EIGH_RESIDUAL:.3e} (BENCH_r05.json)")
     return {"cfg3": (a3, y3), "small": (small, ys)}
+
+
+@contextlib.contextmanager
+def completions(mods):
+    """Count the U completions that fire in ``mods``' ``_complete_u``
+    (it returns its input unchanged unless it repairs); restored on exit."""
+    fired = {"n": 0}
+    saved = []
+    for mod in mods:
+        fn = mod._complete_u
+
+        def counted(u, *args, _fn=fn, **kwargs):
+            out = _fn(u, *args, **kwargs)
+            fired["n"] += out is not u
+            return out
+
+        saved.append((mod, fn))
+        mod._complete_u = counted
+    try:
+        yield fired
+    finally:
+        for mod, fn in saved:
+            mod._complete_u = fn
+
+
+def check_shown(what: str, want: dict, totals: dict) -> None:
+    """check_counts on the counters read now, and the house_panel and
+    chol_leaf counts printed."""
+    got = read_counts()
+    check_counts(what, got, want, totals)
+    say(f"{what}: house_panel {got['house_panel']}, chol_leaf "
+        f"{got['chol_leaf']} launches, as expected")
+
+
+def svd_method_launches(method, a, totals, what, tpu=None):
+    """svd_decomp(method='dc'|'blocked') on a square batch under svd_gate,
+    with its launches checked: 'dc' polishes U and V by one CholeskyQR
+    each, 'blocked' V once (chol_leaf n/64 a polish), both methods run
+    house_panel n/128 times per U completion that fires, and neither
+    launches anything else."""
+    n = a.shape[-1]
+    mod = svd_dc_mod if method == "dc" else svd_block_mod
+    reset_counts()
+    with completions([mod]) as fired:
+        u, sv, v = la.svd_decomp(a, method=method)
+    want = {"house_panel": fired["n"] * -(-n // 128)} if fired["n"] else {}
+    want["chol_leaf"] = (2 if method == "dc" else 1) * (n // 64)
+    say(f"{what}: {fired['n']} U completions fired")
+    check_shown(what, want, totals)
+    svd_gate(what, a, u, sv, v, tpu)
+
+
+def phase3_la_rest(totals, a, cfg2, svd_in):
+    """The rest of la: svd_decomp by 'dc' and 'blocked' on the 512² suite's
+    batch (bench.py:319-325) and on config 3 (bench.py:398-425);
+    bidiag_decomp of config 3; ldl and pldlp on config 2's systems and on
+    symmetric indefinite ones of the same shape; the Kogbetliantz and
+    classic Jacobi SVDs on (8, 96, 64); and rand's ortho of (32, 512,
+    512)."""
+    a3, _ = svd_in["cfg3"]
+    for method in ("dc", "blocked"):
+        svd_method_launches(method, a, totals,
+                            f"svd_decomp(method='{method}') (32, 512, 512)",
+                            TPU_SVD_RECON)
+        svd_method_launches(method, a3, totals,
+                            f"config 3 svd_decomp(method='{method}') "
+                            "(8, 512, 512)", TPU_CFG3_RECON)
+
+    reset_counts()
+    u, b, v = la.bidiag_decomp(a3)
+    check_shown("bidiag_decomp (8, 512, 512)", {}, totals)
+    n = a3.shape[-1]
+    eye = torch.eye(n, device=DEVICE)
+    tol = 1e-5 * maxabs(a3) * n ** 0.5
+    recon = maxabs(torch.matmul(torch.matmul(u, b), v) - a3)
+    otol = 4 * torch.finfo(torch.float32).eps * n
+    ou = maxabs(torch.matmul(u.mT, u) - eye)
+    ov = maxabs(torch.matmul(v, v.mT) - eye)
+    band = torch.triu(torch.tril(torch.ones(n, n, device=DEVICE), 1))
+    check(bool((b * (1 - band) == 0).all()), "bidiag_decomp: B upper "
+          "bidiagonal")
+    check(recon <= tol and ou <= otol and ov <= otol, "bidiag_decomp "
+          f"(8, 512, 512): max |U·B·V - A| = {recon:.3e} <= {tol:.3e}, "
+          f"max |UᵀU - I| = {ou:.3e} and max |V·Vᵀ - I| = {ov:.3e} <= "
+          f"{otol:.3e}")
+
+    spd2, y2 = cfg2
+    reset_counts()
+    l, d = la.ldl_decomp(spd2)
+    x = la.ldl_solve(l, d, y2)
+    check_shown("ldl_decomp + ldl_solve (1024, 128, 128)", {}, totals)
+    square_solve_gate(spd2, x, y2, "config 2 systems by ldl_decomp + "
+                      "ldl_solve (1024, 128, 128)", "bench.py:392")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    s = torch.randn(spd2.shape, generator=gen).to(DEVICE)
+    sym = (s + s.mT) * 0.5
+    reset_counts()
+    ld, p, blk = la.pldlp_decomp(sym)
+    x = la.pldlp_solve(ld, p, blk, y2)
+    check_shown("pldlp_decomp + pldlp_solve (1024, 128, 128)", {}, totals)
+    say(f"pldlp_decomp (1024, 128, 128) symmetric indefinite: "
+        f"{int(blk.sum())} 2×2 pivots")
+    # bench.py's residual gate 1e-4·max|A|·√N (bench.py:362) assumes a
+    # well-conditioned system: κ₂ of (s + sᵀ)/2 reaches 3e4-7e4 in a batch
+    # of 1024, where LAPACK's Bunch-Kaufman (torch.linalg.ldl_factor) and
+    # LU miss it too. So the solve is held by its backward error, which
+    # does not loosen with κ: ≤ N·eps (solve_check), and x to the library
+    # Bunch-Kaufman's within the forward-error estimate. Not also to
+    # BACKWARD_MULT × the library's backward error: the JAX package's
+    # unblocked Bunch-Kaufman grows elements up to 8× on some systems of
+    # this batch (backward error about 27·eps at κ₂ 64, 8.3× LAPACK's)
+    x_ref = ldl_yardstick(sym, y2)
+    tol = 1e-4 * maxabs(sym) * sym.shape[-1] ** 0.5
+    say(f"pldlp_solve: max |A·x - y| = {maxabs(sym @ x - y2):.3e}, "
+        f"torch.linalg.ldl_solve's {maxabs(sym @ x_ref - y2):.3e}, against "
+        f"bench.py's {tol:.3e} for well-conditioned systems")
+    solve_check("pldlp_decomp + pldlp_solve, symmetric indefinite (1024, "
+                "128, 128), against torch.linalg.ldl_factor + ldl_solve", sym,
+                y2, x, x_ref, torch.float32, mult=None)
+
+    narrow = torch.randn((8, 96, 64), generator=gen).to(DEVICE)
+    for what, fn in (("svd_jac_2sided", la.svd_jac_2sided),
+                     ("svd_jac_classic", la.svd_jac_classic)):
+        reset_counts()
+        u, sv, v = fn(narrow)
+        check_shown(f"{what} (8, 96, 64)", {"house_panel": 1}, totals)
+        svd_gate(f"{what} (8, 96, 64)", narrow, u, sv, v)
+
+    for what, fn in (("RNG(seed).ortho(32, 512, 512)",
+                      lambda: rand.RNG(SEED).ortho(32, 512, 512)),
+                     ("la.rand_ortho(32, 512, 512)",
+                      lambda: la.rand_ortho(32, 512, 512))):
+        reset_counts()
+        q = fn()
+        check_shown(what, {"house_panel": 4}, totals)
+        orth = maxabs(torch.matmul(q.mT, q) - torch.eye(512, device=DEVICE))
+        check(tuple(q.shape) == (32, 512, 512) and orth <= otol,
+              f"{what}: max |QᵀQ - I| = {orth:.3e} <= {otol:.3e}")
+    return {"sym": sym, "narrow": narrow}
 
 
 # ---------------------------------------------------------------- eigen
@@ -2175,12 +2330,13 @@ def host_breakdown(what, fn, parts, top):
         + f"; the rest {rest:.3f}")
 
 
-def wall_ms(fn):
-    """Host-clock milliseconds of ``fn`` to a synchronised end, three
-    times after one warm-up call."""
-    fn()
+def wall_ms(fn, runs: int = 3, warm: bool = True):
+    """Host-clock milliseconds of ``fn`` to a synchronised end, ``runs``
+    times after one warm-up call (none when ``warm`` is False)."""
+    if warm:
+        fn()
     out = []
-    for _ in range(3):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -2829,8 +2985,9 @@ def device_busy(fn):
 
 
 def config5_times(cfg5):
-    """Config 5's wall times (three runs after a warm-up): the ODR fit, the
-    L-BFGS run and both, beside torch.optim.LBFGS on the same Rosenbrock;
+    """Config 5's wall times: the ODR fit (three runs after a warm-up), the
+    L-BFGS run and torch.optim.LBFGS on the same Rosenbrock (three runs,
+    each warmed by its earlier call) and both together (once);
     host breakdowns of each; the host reads an iteration over the timed
     runs; the device's busy share over the fit and over 100 L-BFGS
     iterations (torch.profiler); and the time of the fit's chol_leaf
@@ -2865,9 +3022,10 @@ def config5_times(cfg5):
                 wall_ms(lambda: config5_odr(x, y, p0))}
     odr_reads = host.reads / 4
     host.reads = 0
+    # phase 3's run was the warm-up: no more, at 8-15 s a run
     wall["config 5 lbfgs_minimize (128-d Rosenbrock)"] = \
-        wall_ms(lambda: config5_lbfgs(z0))
-    lbfgs_reads = host.reads / 4
+        wall_ms(lambda: config5_lbfgs(z0), 3, False)
+    lbfgs_reads = host.reads / 3
     part["reads_an_iteration"] = {
         "odr_lm": odr_reads / stats["odr_iterations"],
         "lbfgs_minimize": lbfgs_reads / stats["lbfgs_iterations"]}
@@ -2887,11 +3045,13 @@ def config5_times(cfg5):
                f"{ms:.3f} ms "
                f"wall, busy share {dev / ms:.3f} (a lower bound: the "
                "profiler's own host time is in the wall)"))
+    # both together, once: the sum of the two walls above
     wall |= {
             "config 5 (both)":
-                wall_ms(lambda: (config5_odr(x, y, p0), config5_lbfgs(z0))),
+                wall_ms(lambda: (config5_odr(x, y, p0), config5_lbfgs(z0)),
+                        1, False),
             "torch.optim.LBFGS (128-d Rosenbrock), yardstick":
-                wall_ms(lambda: torch_lbfgs(z0))}
+                wall_ms(lambda: torch_lbfgs(z0), 3, False)}
     host_breakdown(
         "config 5 odr_lm", lambda: config5_odr(x, y, p0),
         [(odr_mod, "tls_more_lambda_step",
@@ -2907,6 +3067,56 @@ def config5_times(cfg5):
          (lbfgs_mod, "lbfgs_update", "curvature pair")],
         ("lbfgs_hv", "wolfe_line_search", "lbfgs_update"))
     return wall, part
+
+
+def ldl_yardstick(a, y):
+    """torch.linalg.ldl_factor + ldl_solve, the yardstick of ldl and
+    pldlp (Bunch-Kaufman in LAPACK's sytrf)."""
+    ld, piv = torch.linalg.ldl_factor(a)
+    return torch.linalg.ldl_solve(ld, piv, y)
+
+
+def la_rest_walls(a, a3, spd2, y2, svd_in) -> dict:
+    """Walls of phase3_la_rest's configurations, three runs each, phase 3's
+    call on the same input their warm-up; their SVD yardsticks are the
+    torch.linalg.svd walls of the same batches above."""
+    sym, narrow = svd_in["sym"], svd_in["narrow"]
+
+    def wall(fn):
+        return wall_ms(fn, 3, False)
+
+    def ldl():
+        l, d = la.ldl_decomp(spd2)
+        return la.ldl_solve(l, d, y2)
+
+    def pldlp():
+        return la.pldlp_solve(*la.pldlp_decomp(sym), y2)
+
+    return {
+        "svd_decomp(method='dc') (32, 512, 512)":
+            wall(lambda: la.svd_decomp(a, method="dc")),
+        "svd_decomp(method='blocked') (32, 512, 512)":
+            wall(lambda: la.svd_decomp(a, method="blocked")),
+        "config 3 svd_decomp(method='dc') (8, 512, 512)":
+            wall(lambda: la.svd_decomp(a3, method="dc")),
+        "config 3 svd_decomp(method='blocked') (8, 512, 512)":
+            wall(lambda: la.svd_decomp(a3, method="blocked")),
+        "bidiag_decomp (8, 512, 512)": wall(lambda: la.bidiag_decomp(a3)),
+        "ldl_decomp + ldl_solve (1024, 128, 128)": wall(ldl),
+        "pldlp_decomp + pldlp_solve indefinite (1024, 128, 128)":
+            wall(pldlp),
+        # 5-7 s a call: one run each, phase 3's call of the second its
+        # warm-up
+        "torch.linalg.ldl_factor + ldl_solve indefinite (1024, 128, 128), "
+        "yardstick": wall_ms(lambda: ldl_yardstick(sym, y2), 1, False),
+        "torch.linalg.ldl_factor + ldl_solve (1024, 128, 128), yardstick":
+            wall_ms(lambda: ldl_yardstick(spd2, y2), 1, False),
+        "svd_jac_2sided (8, 96, 64)":
+            wall(lambda: la.svd_jac_2sided(narrow)),
+        "svd_jac_classic (8, 96, 64)":
+            wall(lambda: la.svd_jac_classic(narrow)),
+        "RNG(seed).ortho (32, 512, 512)":
+            wall(lambda: rand.RNG(SEED).ortho(32, 512, 512))}
 
 
 def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig,
@@ -3097,6 +3307,7 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig,
             wall_ms(lambda: la.eigh(sym, method="via_svd")),
         "torch.linalg.svd (1024, 1024), yardstick":
             wall_ms(lambda: torch.linalg.svd(sym))}
+    wall |= la_rest_walls(a, a3, spd2, y2, svd_in)
     # svd_gram: the spectral seed, the iterations (their Cholesky
     # inverses), the repair's Householder QR; svd_jac_1sided: the pre-QR
     # and repair, the sweeps; eigh: sytrd (its panels), the tridiagonal

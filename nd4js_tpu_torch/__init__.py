@@ -29,11 +29,20 @@ RRQR and URV (``la.srrqr_decomp_full``, ``la.urv_decomp_full``,
 ``la.urv_lstsq``, ``la.lstsq(method="urv")``), ``la.tri_inv`` and the
 ``scan``/``inv`` solves; ``dt``; and ``opt`` up to config 5: the line
 searches, L-BFGS, LM, dogleg and orthogonal distance regression, whose
-structured solve runs ``chol_leaf`` on the card.
+structured solve runs ``chol_leaf`` on the card; and the rest of ``la``:
+the SVD by divide and conquer (``la.svd_dc``, whose orthogonality polish
+runs ``chol_leaf``), block Jacobi (``la.svd_jac_blocked``), Kogbetliantz
+(``la.svd_jac_2sided``) and classic Jacobi (``la.svd_jac_classic``),
+whose tall inputs go through ``house_panel``; ``la.bidiag_decomp``; LDLᵀ
+and Bunch-Kaufman (``la.ldl_decomp``, ``la.pldlp_decomp`` and their
+solves and factors); ``la.norm``, the n-ary ``la.matmul``, ``la.eye``,
+``la.diag``, ``la.diag_mat`` and ``la.transpose_inplace``; and ``rand``
+(``RNG``, ``rand_normal``, ``rand_ortho``).
 """
 from . import config, dt
 from . import la
 from . import opt
+from . import rand
 from . import entry
 
 __version__ = "0.1.0"

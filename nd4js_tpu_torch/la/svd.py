@@ -4,7 +4,8 @@ rank-truncated pseudo-inverse.
 
 ``svd_decomp``'s 'auto' routes min(M, N) ≥ 128 to the simultaneous-rotation
 ``svd_gram`` and smaller inputs to the one-sided Jacobi of ``svd_jac``
-(the ``jacobi_sweeps`` kernel).
+(the ``jacobi_sweeps`` kernel); 'blocked' and 'dc' name the block Jacobi
+of ``svd_block_jac`` and the divide-and-conquer of ``svd_dc``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from ..convert import as_tensor
 from ..core.batch import batched
 from ..core.mm import mm, mt
 from .singular_matrix_solve_error import SingularMatrixSolveError
+from .svd_block_jac import svd_jac_blocked
+from .svd_dc import svd_dc
 from .svd_gram import svd_gram
 from .svd_jac import svd_jac_1sided
 from .urv import urv_decomp_full, urv_lstsq
@@ -23,18 +26,14 @@ __all__ = ["svd_decomp", "svd_rank", "svd_solve", "svd_lstsq", "rank",
            "lstsq"]
 
 
-# the methods whose JAX modules the port lacks
-_UNPORTED = {"blocked": "nd4js_tpu/la/svd_block_jac.py's svd_jac_blocked",
-             "dc": "nd4js_tpu/la/svd_dc.py's svd_dc"}
-
-
 def svd_decomp(a, method: str = "auto", device=None, **kw):
     """Default SVD: A = U·diag(sv)·V, batched over leading dims.
 
     method: 'auto' (min(M, N) ≥ 128 goes to 'gram', smaller inputs to
-    'jacobi'), 'jacobi' (one-sided Jacobi, the ``jacobi_sweeps`` kernel) or
-    'gram' (simultaneous rotations, GEMMs). 'blocked' and 'dc' are not
-    ported yet. Keywords pass to the chosen method. An array-like ``a``
+    'jacobi'), 'jacobi' (one-sided Jacobi, the ``jacobi_sweeps`` kernel),
+    'gram' (simultaneous rotations, GEMMs), 'blocked' (block Jacobi,
+    ``svd_jac_blocked``) or 'dc' (divide and conquer on the bidiagonal,
+    ``svd_dc``). Keywords pass to the chosen method. An array-like ``a``
     goes to ``device`` (default ``config.default_device``)."""
     if method == "auto":
         shape = np.shape(a)
@@ -44,10 +43,10 @@ def svd_decomp(a, method: str = "auto", device=None, **kw):
         return svd_jac_1sided(a, device=device, **kw)
     if method == "gram":
         return svd_gram(a, device=device, **kw)
-    if method in _UNPORTED:
-        raise NotImplementedError(
-            f"svd method {method!r} is not ported yet: it is "
-            f"{_UNPORTED[method]}")
+    if method == "blocked":
+        return svd_jac_blocked(a, device=device, **kw)
+    if method == "dc":
+        return svd_dc(a, device=device, **kw)
     raise ValueError(f"unknown method {method!r}")
 
 

@@ -13,10 +13,14 @@ one get U completed to an orthonormal basis by a Householder QR.
 
 Returns (U, sv, V) with A = U·diag(sv)·V (V is what NumPy calls Vᵀ).
 ``_rotation`` and ``_brent_luk_shuffle`` serve ``svd_gram``'s finishing
-sweeps. The JAX package's XLA-only paths (``_jacobi_core``,
-``_svd_square``, ``_svd_1sided_core``) and the wrappers
-``svd_jac_classic``, ``svd_jac_2sided`` and ``svd_jac_2sided_blocked``
-of ``nd4js_tpu/la/svd_jac.py`` are not ported yet.
+sweeps (and the shuffle ``svd_block_jac``'s inner sweeps);
+``_rectangular`` and ``_svd_entry`` the entry points of the other SVD
+modules. The wrappers ``svd_jac_classic``, ``svd_jac_2sided`` and
+``svd_jac_2sided_blocked`` name the other Jacobi mechanisms
+(``svd_classic``, ``svd_kogbetliantz``, ``svd_block_jac``). The JAX
+package's XLA-only paths (``_jacobi_core``, ``_svd_square``,
+``_svd_1sided_core``, ``_svd_jac_1sided_xla``), which nothing there calls,
+are not ported.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from ..ops.jacobi_sweep import _shuffle as _brent_luk_shuffle  # noqa: F401
 from ..ops.jacobi_sweep import jacobi_sweeps
 from .qr import _qr_house_flat
 
-__all__ = ["svd_jac_1sided"]
+__all__ = ["svd_jac_1sided", "svd_jac_classic", "svd_jac_2sided",
+           "svd_jac_2sided_blocked"]
 
 
 def _rotation(app, aqq, apq, eps):
@@ -55,13 +60,14 @@ def _descending(x):
     return torch.sort(0.0 - x, dim=-1, stable=True).indices
 
 
-def _complete_u(u, sv, tol_rank):
+def _complete_u(u, sv, tol_rank, force=False):
     """Orthonormal completion of the U columns with sv ≈ 0, per matrix
     (``nd4js_tpu/la/svd_jac.py:112-125`` under ``vmap``): the matrices
-    whose smallest sv is ≤ their ``tol_rank`` get U from a Householder QR
-    of it, signs fixed by R's diagonal; the others keep theirs. One host
-    sync."""
-    need = torch.nonzero(sv.amin(-1) <= tol_rank).squeeze(1)
+    whose smallest sv is ≤ their ``tol_rank``, or whose ``force`` (a bool,
+    or one a matrix) is set, get U from a Householder QR of it, signs
+    fixed by R's diagonal; the others keep theirs. One host sync."""
+    need = torch.nonzero((sv.amin(-1) <= tol_rank) | torch.as_tensor(
+        force, device=sv.device)).squeeze(1)
     if need.numel() == 0:
         return u
     q, r = _qr_house_flat(u[need], True)
@@ -110,19 +116,68 @@ def _svd_jac_flat(a3, max_sweeps: int):
     return mm(q, mt(v)), sv, mt(u)
 
 
-def svd_jac_1sided(a, max_sweeps: int = 24, device=None):
-    """One-sided Jacobi SVD (see the module docstring). Batched over
-    leading dims. Returns (U (..., M, K), sv (..., K), V (..., K, N)) with
-    A = U·diag(sv)·V, K = min(M, N). An array-like ``a`` goes to
-    ``device`` (default ``config.default_device``)."""
+def _rectangular(a3, square):
+    """(U, sv, V) of a flat batch (B, M, N) from ``square``, an SVD of
+    square batches: a wide batch transposed, a tall one reduced by
+    Householder QR first (``house_panel`` on the card), as the reference's
+    Jacobi drivers do."""
+    M, N = a3.shape[-2:]
+    if M < N:
+        u, sv, v = _rectangular(mt(a3), square)
+        return mt(v), sv, mt(u)
+    if M > N:
+        q, r = _qr_house_flat(a3, True)
+        u, sv, v = square(r)
+        return mm(q, u), sv, v
+    return square(a3)
+
+
+def _svd_entry(a, flat, device):
+    """An SVD entry point: ``a`` to ``device`` and a floating dtype, its
+    leading dims flattened into one batch axis for ``flat`` (B, M, N) →
+    (U, sv, V), and restored on the outputs."""
     a = as_tensor(a, device)
     a = a.to(default_float_for(a.dtype))
     if a.ndim < 2:
         raise ValueError("svd expects ndim >= 2")
     lead = a.shape[:-2]
     M, N = a.shape[-2:]
-    u, sv, v = _svd_jac_flat(a.reshape((max(1, math.prod(lead)), M, N)),
-                             max_sweeps)
+    u, sv, v = flat(a.reshape((max(1, math.prod(lead)), M, N)))
     K = min(M, N)
     return (u.reshape(lead + (M, K)), sv.reshape(lead + (K,)),
             v.reshape(lead + (K, N)))
+
+
+def svd_jac_1sided(a, max_sweeps: int = 24, device=None):
+    """One-sided Jacobi SVD (see the module docstring). Batched over
+    leading dims. Returns (U (..., M, K), sv (..., K), V (..., K, N)) with
+    A = U·diag(sv)·V, K = min(M, N). An array-like ``a`` goes to
+    ``device`` (default ``config.default_device``)."""
+    return _svd_entry(a, lambda a3: _svd_jac_flat(a3, max_sweeps), device)
+
+
+# The reference's Jacobi variants, each with its own mechanism: one-sided
+# Brent-Luk (above), greedy max-pivot classic (svd_classic), sequential
+# row-cyclic two-sided Kogbetliantz (svd_kogbetliantz) and the block
+# variant (svd_block_jac), as in nd4js_tpu/la/svd_jac.py:249-281. Their
+# modules import this one, so the wrappers import them when called.
+def svd_jac_classic(a, max_sweeps: int = 60, device=None):
+    """Classic two-sided Jacobi with the greedy largest-off-diagonal pivot
+    (``svd_classic.svd_jac_classic_greedy``): sequential, one rotation a
+    step, kept for mechanism parity."""
+    from .svd_classic import svd_jac_classic_greedy
+    return svd_jac_classic_greedy(a, max_sweeps=max_sweeps, device=device)
+
+
+def svd_jac_2sided(a, max_sweeps: int = 30, device=None):
+    """Cyclic two-sided Jacobi, Kogbetliantz's row-cyclic sweeps
+    (``svd_kogbetliantz.svd_kogbetliantz``): sequential, one pair a step."""
+    from .svd_kogbetliantz import svd_kogbetliantz
+    return svd_kogbetliantz(a, max_sweeps=max_sweeps, device=device)
+
+
+def svd_jac_2sided_blocked(a, device=None, **kw):
+    """The block Jacobi SVD (``svd_block_jac.svd_jac_blocked``); keywords
+    pass through."""
+    from .svd_block_jac import svd_jac_blocked
+    return svd_jac_blocked(a, device=device, **kw)

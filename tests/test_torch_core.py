@@ -5,6 +5,8 @@ _triu_solve_blocked and triu_solve, convert's dtype rules, and numpy
 input to tril, triu, the triangular solves, matmul2 and norm_fro.
 
 Inputs come from numpy with a fixed seed and go to both packages."""
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -18,7 +20,11 @@ from nd4js_tpu.la import tri as jtri
 
 from nd4js_tpu_torch import config, convert
 from nd4js_tpu_torch.core import batch, debug
-from nd4js_tpu_torch.la import matmul, norm, tri
+from nd4js_tpu_torch.la import tri
+
+# the modules, which la's functions of the same names shadow as attributes
+matmul = importlib.import_module("nd4js_tpu_torch.la.matmul")
+norm = importlib.import_module("nd4js_tpu_torch.la.norm")
 
 CPU = "cpu"
 

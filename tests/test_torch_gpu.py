@@ -1395,3 +1395,100 @@ def test_config5_on_the_card_through_the_bench_gate(cuda):
     assert p.is_cuda and p.dtype == torch.float32 and int(it) == 40
     assert float((p.cpu() - torch.from_numpy(p_true)).abs().max()) < 0.05
     assert float(fz) < 1e-4
+
+
+def _svd_recon(a, u, sv, v) -> float:
+    u, sv, v, a = (x.double().cpu() for x in (u, sv, v, a))
+    return float(((u * sv[..., None, :]) @ v - a).abs().max())
+
+
+@pytest.mark.parametrize("method", ["dc", "blocked"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_svd_dc_and_blocked_on_the_card_match_the_cpu(cuda, method, dtype):
+    """svd_decomp(method='dc'|'blocked') of a batch (4, 160, 96) with a
+    rank-40 matrix on the card, by the contract the CPU port meets on the
+    same input: U and V orthonormal to 4·eps·max(M, N), σ descending and
+    within 32·eps·max(M, N)·σ₀ of the CPU port's, and U·diag(σ)·V within
+    32·eps·max(M, N)·max|A| of A or within 4× the CPU port's own miss
+    (the divide and conquer's TGK solve at 2K = 192 misses by about 5e-10
+    of max|A| in float64, as the JAX package's does). Both polish with
+    chol_leaf and pre-reduce with house_panel."""
+    rng = np.random.default_rng(60)
+    a = rng.standard_normal((4, 160, 96))
+    a[1] = rng.standard_normal((160, 40)) @ rng.standard_normal((40, 96))
+    a = torch.from_numpy(a).to(dtype)
+    eps = torch.finfo(dtype).eps
+    before = (hp.launches, cl.launches)
+    u, sv, v = la.svd_decomp(a.to(cuda), method=method)
+    torch.cuda.synchronize()
+    assert hp.launches > before[0] and cl.launches > before[1]
+    ref = la.svd_decomp(a, method=method)
+    eye = torch.eye(96, dtype=torch.float64)
+    for q in (u.mT @ u, v @ v.mT):
+        assert float((q.double().cpu() - eye).abs().max()) <= 4 * eps * 160
+    assert bool((sv >= 0).all() and (torch.diff(sv, dim=-1) <= 0).all())
+    assert float((sv.cpu() - ref[1]).abs().max()) \
+        <= 32 * eps * 160 * float(ref[1][..., 0].max())
+    assert _svd_recon(a, u, sv, v) <= max(
+        32 * eps * 160 * float(a.abs().max()), 4 * _svd_recon(a, *ref))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pldlp_on_the_card_matches_the_cpu(cuda, dtype):
+    """pldlp_decomp of symmetric indefinite (64, 48, 48) on the card: A[P]
+    [:, P] = L·D·Lᵀ and the solve's residual within N·eps·max|A|·max|x|,
+    P and blk equal to the CPU port's in float64 (both round alike
+    there)."""
+    rng = np.random.default_rng(61)
+    s = rng.standard_normal((64, 48, 48))
+    a = torch.from_numpy((s + np.swapaxes(s, -1, -2)) / 2).to(dtype)
+    y = torch.from_numpy(rng.standard_normal((64, 48, 2))).to(dtype)
+    ld, p, blk = la.pldlp_decomp(a.to(cuda))
+    x = la.pldlp_solve(ld, p, blk, y.to(cuda)).cpu()
+    l, d = la.pldlp_l(ld, blk).cpu(), la.pldlp_d(ld, blk).cpu()
+    ap = torch.gather(torch.gather(a, 1, p.long().cpu()[:, :, None]
+                                   .expand(a.shape)),
+                      2, p.long().cpu()[:, None, :].expand(a.shape))
+    eps = torch.finfo(dtype).eps
+    amax = float(a.abs().max())
+    assert float((l @ d @ l.mT - ap).abs().max()) <= 1e3 * eps * amax
+    assert float((a @ x - y).abs().max()) \
+        <= 48 * eps * amax * float(x.abs().max()) * 48
+    if dtype == torch.float64:
+        _, p_ref, blk_ref = la.pldlp_decomp(a)
+        assert torch.equal(p.cpu(), p_ref) and torch.equal(blk.cpu(),
+                                                          blk_ref)
+
+
+@pytest.mark.parametrize("method", ["2sided", "classic"])
+def test_sequential_jacobi_on_the_card_matches_the_cpu(cuda, method):
+    """svd_jac_2sided and svd_jac_classic of a (4, 14, 10) float64 batch
+    with a rank-4 matrix on the card, run twice (the second run replays
+    its sweeps or runs of rotations as CUDA graphs): σ within
+    32·eps·max(M, N)·σ₀ of the CPU port's, U and V orthonormal to
+    4·eps·max(M, N), U·diag(σ)·V = A within 32·eps·max(M, N)·max|A|;
+    Kogbetliantz's sweeps per matrix equal the CPU's."""
+    rng = np.random.default_rng(62)
+    a = rng.standard_normal((4, 14, 10))
+    a[1] = rng.standard_normal((14, 4)) @ rng.standard_normal((4, 10))
+    a = torch.from_numpy(a)
+    fn = la.svd_jac_2sided if method == "2sided" else la.svd_jac_classic
+    ref = fn(a)
+    eps = torch.finfo(torch.float64).eps
+    for _ in range(2):
+        u, sv, v = (x.cpu() for x in fn(a.to(cuda)))
+        assert float((sv - ref[1]).abs().max()) \
+            <= 32 * eps * 14 * float(ref[1][:, 0].max())
+        eye = torch.eye(10, dtype=torch.float64)
+        assert float((u.mT @ u - eye).abs().max()) <= 4 * eps * 14
+        assert float((v @ v.mT - eye).abs().max()) <= 4 * eps * 14
+        assert float(((u * sv[..., None, :]) @ v - a).abs().max()) \
+            <= 32 * eps * 14 * float(a.abs().max())
+    if method == "2sided":
+        kog = importlib.import_module("nd4js_tpu_torch.la.svd_kogbetliantz")
+        r = torch.linalg.qr(a)[1]
+        tol = 10 * eps
+        want = kog._kog_core(r, 30, tol)[3]
+        for _ in range(2):
+            got = kog._kog_core(r.to(cuda), 30, tol)[3]
+            assert got.cpu().tolist() == want.tolist()

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import nd4js_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -84,6 +86,33 @@ def test_dt_and_the_opt_modules_are_among_those_checked():
             "opt/line_search/_wolfe", "opt/_lbfgs_solver",
             "opt/_lbfgsb_solver", "opt/lbfgs", "opt/_trust_region", "opt/lm",
             "opt/dogleg", "opt/_trust_region_tls", "opt/odr"} <= found
+
+
+def test_the_rest_of_la_and_rand_are_among_those_checked():
+    """The modules of the rest of ``la`` and of ``rand`` are found by the
+    walk above, so they too import without JAX, and by the source scans
+    below."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"la/ldl", "la/pldlp", "la/bidiag", "la/svd_dc",
+            "la/svd_block_jac", "la/svd_kogbetliantz", "la/svd_classic",
+            "la/eye_diag", "la/misc", "rand/__init__", "rand/rng"} <= found
+
+
+@pytest.mark.parametrize("pkg", ["la", "rand"])
+def test_every_public_name_of_the_jax_package_is_in_the_port(pkg):
+    """Every public function and class of ``nd4js_tpu.la`` and
+    ``nd4js_tpu.rand`` (its submodules aside) is in the port's ``la`` and
+    ``rand``, listed in their ``__all__``."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"nd4js_tpu.{pkg}")
+    port = importlib.import_module(f"nd4js_tpu_torch.{pkg}")
+    names = {n for n in dir(ref) if not n.startswith("_")
+             and not isinstance(getattr(ref, n), types.ModuleType)}
+    assert names, pkg
+    assert names <= set(port.__all__), sorted(names - set(port.__all__))
+    assert all(callable(getattr(port, n)) for n in names)
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():

@@ -168,14 +168,16 @@ def test_svd_float32_and_integer_input():
 
 def test_svd_decomp_routing_and_unported_methods():
     """'auto' takes 'jacobi' below 128 and 'gram' from 128 (the JAX
-    package's rule); 'blocked' and 'dc' are not ported yet."""
+    package's rule); 'blocked' and 'dc', once unported, now route to
+    ``svd_jac_blocked`` and ``svd_dc``."""
     a = np.random.default_rng(313).standard_normal((2, 6, 5))
     ua, sa, va = la.svd_decomp(_t(a))
     uj, sj, vj = la.svd_decomp(_t(a), method="jacobi")
     assert torch.equal(sa, sj) and torch.equal(ua, uj)
-    for method in ("blocked", "dc"):
-        with pytest.raises(NotImplementedError, match="nd4js_tpu/la/svd_"):
-            la.svd_decomp(_t(a), method=method)
+    for method, direct in (("blocked", la.svd_jac_blocked),
+                           ("dc", la.svd_dc)):
+        for x, y in zip(la.svd_decomp(_t(a), method=method), direct(_t(a))):
+            assert torch.equal(x, y)
     with pytest.raises(ValueError):
         la.svd_decomp(_t(a), method="nope")
     big = np.random.default_rng(314).standard_normal((1, 128, 128))
