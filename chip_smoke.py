@@ -67,12 +67,29 @@ Phases, each announced by a flushed line at its start and its end:
    column loop and trailing update apart, by cluster size; house_panel
    with and without the column-major scratch; lu_panel on lu_decomp's
    four panels in every placement (the plan's marked) and lu_gesv at
-   config 2 in every layout; config 5's walls (the fit, the L-BFGS run,
-   both) beside ``torch.optim.LBFGS`` on the same Rosenbrock, the rest of
+   config 2 in every layout; config 5's walls (the fit, the L-BFGS run)
+   beside ``torch.optim.LBFGS`` on the same Rosenbrock, the rest of
    ``la``'s configurations beside ``torch.linalg.svd`` (the walls above)
    and ``torch.linalg.ldl_factor`` + ``ldl_solve``, their host
    breakdowns and host reads an iteration, the device's busy share under
-   torch.profiler, and the device time of the fit's chol_leaf launches.
+   torch.profiler, and the device time of the fit's chol_leaf launches;
+5. the rest of ``opt`` and ``utils``, each path with the counters reset
+   before and read after and held to its gate, then three timed runs:
+   ``opt.lbfgsb_minimize`` of config 5's 128-d Rosenbrock from −1s in the
+   box [−2, 0.5]¹²⁸ (float32, memory 8, 500 iterations) against the
+   port's float64 run, scipy's L-BFGS-B beside it as a witness, and with
+   infinite bounds to f < 1e-4, printing the host reads an iteration and
+   the aten ops of one Cauchy point (no kernel); ``opt.root_newton`` on a
+   discretised Bratu problem (n = 512, dense J) in float64 and float32
+   (``lu_panel`` 4 an iteration); ``opt.fit_lin`` of config 5's 4096
+   points against 16 Chebyshev polynomials of x/2, regularised 0 and
+   1e-3 (``house_panel`` 1, ``jacobi_sweeps`` one a sweep);
+   ``utils.KDTree.nearest`` of 1024 queries among 262144 points in 8-d,
+   k = 16; and ``utils.odeint_rk4`` of 4096 Lorenz systems over 1000
+   steps, ``opt.num_grad``/``num_grad_forward`` of the 128-d Rosenbrock,
+   ``opt.min1d_gss``, the three ``opt.root1d_*`` and
+   ``opt.min_nelder_mead`` on the helical valley and Beale's function.
+   Its launches are added to the kernels' counts.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -85,6 +102,7 @@ import contextlib
 import faulthandler
 import importlib
 import json
+import math
 import os
 import signal
 import subprocess
@@ -93,9 +111,10 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-from nd4js_tpu_torch import la, opt, rand
+from nd4js_tpu_torch import la, opt, rand, utils
 from nd4js_tpu_torch.core import host
 from nd4js_tpu_torch.entry import entry
 from nd4js_tpu_torch.la import qr as qr_mod
@@ -117,6 +136,8 @@ tls_mod = importlib.import_module("nd4js_tpu_torch.opt._trust_region_tls")
 lbfgs_mod = importlib.import_module("nd4js_tpu_torch.opt.lbfgs")
 svd_dc_mod = importlib.import_module("nd4js_tpu_torch.la.svd_dc")
 svd_block_mod = importlib.import_module("nd4js_tpu_torch.la.svd_block_jac")
+lbfgsb_mod = importlib.import_module("nd4js_tpu_torch.opt.lbfgsb")
+lbfgsb_solver = importlib.import_module("nd4js_tpu_torch.opt._lbfgsb_solver")
 
 DEADLINE_S = 900
 DEVICE = "cuda"
@@ -142,6 +163,10 @@ HOUSE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
 STRIPE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
                  (32, 128, 128), (4, 128, 128), (2, 64, 17), (3, 96, 24))
 STRIPE_GLOBAL = {torch.float32: (2, 2048, 128), torch.float64: (2, 1024, 128)}
+# panels of more rows than one block can stage, which stage the stripe and
+# V in global memory too: fit_lin's (4096, 16) of config 5's points, and
+# one in float64
+STRIPE_STAGED = {torch.float32: (1, 4096, 16), torch.float64: (2, 2048, 40)}
 # a qr_gesv system too large for a cluster of 8 in either type
 GESV_GLOBAL = (2, 768, 768, 2)
 # sytrd_panel against its plain version: SYTRD_C·eps·m·max|C| on the
@@ -491,13 +516,17 @@ def gesv_check(what, a, y, dtype, errs, cluster=None, shared=None):
 def phase2_stripe(rng, errs, dtype):
     """house_stripe_t against its plain version on R, V and taus within
     TOL·max|A|, at the headline's panels, (4, 128, 128), B not a multiple
-    of 8 and the global regime, a zero column in the first matrix (τ = 0);
-    at (32, 512, 128) also against house_panel's plain version, the
-    drop-in contract of the JAX package's tests/test_qr.py:119-135."""
-    for shape in STRIPE_SHAPES + (STRIPE_GLOBAL[dtype],):
+    of 8, the global regime and the global regime staged in global memory,
+    a zero column in the first matrix (τ = 0); at (32, 512, 128) also
+    against house_panel's plain version, the drop-in contract of the JAX
+    package's tests/test_qr.py:119-135."""
+    for shape in STRIPE_SHAPES + (STRIPE_GLOBAL[dtype], STRIPE_STAGED[dtype]):
         a = torch.from_numpy(rng.standard_normal(shape)).to(DEVICE, dtype)
         a[0, :, shape[-1] // 2] = 0
         c, sh = hs.stripe_plan(a)
+        if shape == STRIPE_STAGED[dtype]:
+            check(sh == hs.STAGED, f"house_stripe_t {shape} {dtype}: the "
+                  "plan stages the stripe in global memory")
         what = f"house_stripe_t {shape} {dtype} ({hs.regime(c, sh)})"
         before = hs.stripe_launches
         got = hs.house_stripe_t(a)
@@ -2312,12 +2341,14 @@ def host_timers(targets):
             setattr(mod, name, fn)
 
 
-def host_breakdown(what, fn, parts, top):
+def host_breakdown(what, fn, parts, top, warm: bool = True):
     """Where one call of ``fn`` spends its time, by host clock with a
     synchronise around each of ``parts`` ((module, function, label)); the
     rest is the whole less the parts named in ``top`` (the others nest
-    inside those)."""
-    fn()
+    inside those). A warm-up call first, unless ``warm`` is False (``fn``
+    ran already)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with host_timers([(mod, name) for mod, name, _ in parts]) as spent:
         t0 = time.perf_counter()
@@ -2556,9 +2587,12 @@ def eigen_rows(counts, errs, s, ab):
 
 def eigen_walls(s, ab):
     _, bal = la.eigen_balance_pre(s)
+    # one run each, phase 3's calls their warm-up (cut from a warm-up and
+    # three runs to keep the script under 700 s)
     wall = {"config 4 eigen (1024, 1024)":
-            wall_ms(lambda: la.eigen(s, split=True)),
-            "schur_decomp (1024, 1024)": wall_ms(lambda: la.schur_decomp(bal)),
+            wall_ms(lambda: la.eigen(s, split=True), 1, False),
+            "schur_decomp (1024, 1024)":
+                wall_ms(lambda: la.schur_decomp(bal), 1, False),
             "eigen (256, 64, 64)": wall_ms(lambda: la.eigen(ab, split=True))}
     for what, x in (("(1024, 1024)", s), ("(256, 64, 64)", ab)):
         try:
@@ -2985,10 +3019,9 @@ def device_busy(fn):
 
 
 def config5_times(cfg5):
-    """Config 5's wall times: the ODR fit (three runs after a warm-up), the
-    L-BFGS run and torch.optim.LBFGS on the same Rosenbrock (three runs,
-    each warmed by its earlier call) and both together (once);
-    host breakdowns of each; the host reads an iteration over the timed
+    """Config 5's wall times: the ODR fit, the L-BFGS run and
+    torch.optim.LBFGS on the same Rosenbrock (one run each, each warmed by
+    its earlier call); host breakdowns of each; the host reads an iteration over the timed
     runs; the device's busy share over the fit and over 100 L-BFGS
     iterations (torch.profiler); and the time of the fit's chol_leaf
     launches, each distinct launch on its first arguments: by CUDA events as
@@ -3018,14 +3051,17 @@ def config5_times(cfg5):
     say(f"torch.optim.LBFGS on config 5's Rosenbrock: f = "
         f"{float(rosen(zt)):.3e} after {n_iter} iterations")
     host.reads = 0
+    # one run, phase 3's its warm-up (a warm-up and three runs until the
+    # script neared its deadline)
     wall = {"config 5 odr_lm (4096 points, 40 iterations)":
-                wall_ms(lambda: config5_odr(x, y, p0))}
-    odr_reads = host.reads / 4
+                wall_ms(lambda: config5_odr(x, y, p0), 1, False)}
+    odr_reads = host.reads
     host.reads = 0
-    # phase 3's run was the warm-up: no more, at 8-15 s a run
+    # phase 3's run was the warm-up; one run (three until the script
+    # neared its deadline), at 8-15 s a run
     wall["config 5 lbfgs_minimize (128-d Rosenbrock)"] = \
-        wall_ms(lambda: config5_lbfgs(z0), 3, False)
-    lbfgs_reads = host.reads / 3
+        wall_ms(lambda: config5_lbfgs(z0), 1, False)
+    lbfgs_reads = host.reads
     part["reads_an_iteration"] = {
         "odr_lm": odr_reads / stats["odr_iterations"],
         "lbfgs_minimize": lbfgs_reads / stats["lbfgs_iterations"]}
@@ -3045,13 +3081,10 @@ def config5_times(cfg5):
                f"{ms:.3f} ms "
                f"wall, busy share {dev / ms:.3f} (a lower bound: the "
                "profiler's own host time is in the wall)"))
-    # both together, once: the sum of the two walls above
-    wall |= {
-            "config 5 (both)":
-                wall_ms(lambda: (config5_odr(x, y, p0), config5_lbfgs(z0)),
-                        1, False),
-            "torch.optim.LBFGS (128-d Rosenbrock), yardstick":
-                wall_ms(lambda: torch_lbfgs(z0), 3, False)}
+    # the yardstick once, its call above the warm-up (config 5's two
+    # paths together, the sum of the two walls above, is no longer run)
+    wall |= {"torch.optim.LBFGS (128-d Rosenbrock), yardstick":
+             wall_ms(lambda: torch_lbfgs(z0), 1, False)}
     host_breakdown(
         "config 5 odr_lm", lambda: config5_odr(x, y, p0),
         [(odr_mod, "tls_more_lambda_step",
@@ -3065,7 +3098,7 @@ def config5_times(cfg5):
         [(lbfgs_mod, "lbfgs_hv", "two-loop H·g"),
          (lbfgs_mod, "wolfe_line_search", "line search with f and ∇f"),
          (lbfgs_mod, "lbfgs_update", "curvature pair")],
-        ("lbfgs_hv", "wolfe_line_search", "lbfgs_update"))
+        ("lbfgs_hv", "wolfe_line_search", "lbfgs_update"), warm=False)
     return wall, part
 
 
@@ -3077,13 +3110,14 @@ def ldl_yardstick(a, y):
 
 
 def la_rest_walls(a, a3, spd2, y2, svd_in) -> dict:
-    """Walls of phase3_la_rest's configurations, three runs each, phase 3's
-    call on the same input their warm-up; their SVD yardsticks are the
-    torch.linalg.svd walls of the same batches above."""
+    """Walls of phase3_la_rest's configurations, one run each (three
+    until the script neared its deadline), phase 3's call on the same
+    input its warm-up; their SVD yardsticks are the torch.linalg.svd
+    walls of the same batches above."""
     sym, narrow = svd_in["sym"], svd_in["narrow"]
 
     def wall(fn):
-        return wall_ms(fn, 3, False)
+        return wall_ms(fn, 1, False)
 
     def ldl():
         l, d = la.ldl_decomp(spd2)
@@ -3378,6 +3412,452 @@ def phase4(counts, errs, batch, cfg1, cfg2, spd512, eig, svd_in, geig,
     return rows, wall
 
 
+# ---- phase 5: the rest of opt/ and utils/ -------------------------------
+# L-BFGS-B's box on config 5's Rosenbrock: the upper bound binds
+LBFGSB_BOX = (-2.0, 0.5)
+# the float32 KKT gate: near the solution ∇f's entries are sums of terms up
+# to 400·|z|³ ≈ 50-400, which float32 rounds to about 5e-5; 20× that
+LBFGSB_KKT = 1e-3
+BRATU_N = 512
+# the float64 Newton tolerance on the h⁻²-scaled Bratu residual, 40× its
+# rounding floor 4·eps·h⁻² ≈ 2.3e-10
+BRATU_TOL64 = 1e-8
+CHEB_P = 16
+KD_N, KD_D, KD_Q, KD_K, KD_SAMPLE = 262144, 8, 1024, 16, 32
+LORENZ_B, LORENZ_STEPS, LORENZ_HELD = 4096, 1000, 8
+# the largest Lyapunov exponent of the classic Lorenz system
+LORENZ_LYAPUNOV = 0.906
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops the host dispatches inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def rosen_np(z):
+    """The Rosenbrock and its gradient in float64 numpy, for scipy."""
+    d = z[1:] - z[:-1] ** 2
+    g = np.zeros_like(z)
+    g[:-1] = -400.0 * z[:-1] * d - 2.0 * (1.0 - z[:-1])
+    g[1:] += 200.0 * d
+    return float(np.sum(100.0 * d ** 2 + (1.0 - z[:-1]) ** 2)), g
+
+
+def scipy_lbfgsb(z0):
+    """scipy's L-BFGS-B in float64 on the host, memory 8, 500 iterations:
+    a witness printed beside the port, never a gate. None without
+    scipy."""
+    try:
+        import scipy.optimize
+    except ImportError:
+        return None
+    return scipy.optimize.minimize(
+        rosen_np, z0.double().cpu().numpy(), jac=True, method="L-BFGS-B",
+        bounds=[LBFGSB_BOX] * 128, options={"maxcor": 8, "maxiter": 500})
+
+
+def lbfgsb_run(z0, bounds, max_iter=500):
+    return opt.lbfgsb_minimize(rosen, z0, bounds, hist_size=8,
+                               max_iter=max_iter)
+
+
+def phase5_lbfgsb(totals, z0):
+    """lbfgsb_minimize of config 5's 128-d Rosenbrock from −1s in the box
+    [−2, 0.5]¹²⁸ (float32, memory 8, 500 iterations) against the port's
+    float64 run on the card, scipy's L-BFGS-B beside it; with infinite
+    bounds (every breakpoint infinite) to f < 1e-4; the host reads an
+    iteration and the aten ops of one Cauchy point."""
+    kkt = lbfgsb_mod._kkt_residual
+    runs, walls = {}, {}
+    for what, z, bounds in (
+            ("box float32", z0, LBFGSB_BOX),
+            ("box float64", z0.double(), LBFGSB_BOX),
+            ("unbounded float32", z0, (-math.inf, math.inf))):
+        reset_counts()
+        host.reads = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, f, g, it = lbfgsb_run(z, bounds)
+        torch.cuda.synchronize()
+        walls[what] = (time.perf_counter() - t0) * 1e3
+        check_counts(f"lbfgsb_minimize {what}", read_counts(), {}, totals)
+        lo = torch.full_like(x, bounds[0])
+        hi = torch.full_like(x, bounds[1])
+        runs[what] = (x, f, g, int(it), host.reads, float(kkt(x, g, lo, hi)))
+        say(f"lbfgsb_minimize {what}: f = {float(f):.9e}, {int(it)} "
+            f"iterations, {host.reads} host reads "
+            f"({host.reads / max(int(it), 1):.2f} an iteration), KKT "
+            f"residual {runs[what][5]:.3e}, "
+            f"{int((x == bounds[1]).sum())} variables at the upper bound")
+    x, f, _, it, _, res = runs["box float32"]
+    f64 = float(runs["box float64"][1])
+    check(tuple(x.shape) == (128,) and x.dtype == torch.float32
+          and bool(torch.isfinite(x).all()) and res <= LBFGSB_KKT
+          and bool((x == LBFGSB_BOX[1]).any())
+          and float(f) <= f64 + 1e-4 * max(1.0, abs(f64)),
+          f"lbfgsb_minimize box float32: KKT residual {res:.3e} <= "
+          f"{LBFGSB_KKT:g}, the upper bound binds, f = {float(f):.9e} no "
+          f"worse than the float64 run's {f64:.9e} + 1e-4·max(1, |f|)")
+    witness = scipy_lbfgsb(z0)
+    say("scipy L-BFGS-B (float64, host, witness): " + (
+        "scipy not available" if witness is None else
+        f"f = {witness.fun:.9e}, {witness.nit} iterations, "
+        f"{witness.message}"))
+    fu = float(runs["unbounded float32"][1])
+    check(fu < 1e-4, f"lbfgsb_minimize unbounded float32: f = {fu:.3e} < "
+          "1e-4 (config 5's gate)")
+    # the aten ops of one Cauchy point, from the state after 10 steps
+    fg, lo, hi, s = lbfgsb_mod._init_b(rosen, z0, LBFGSB_BOX, 8, None)
+    for _ in range(10):
+        s = lbfgsb_mod._lbfgsb_step(fg, lo, hi, s)
+    wk = lbfgsb_solver.compact_wk(s.mem)
+    with OpCount() as cp_ops:
+        lbfgsb_solver.cauchy_point(wk, s.x, s.g, lo, hi)
+    with OpCount() as step_ops:
+        lbfgsb_mod._lbfgsb_step(fg, lo, hi, s)
+    torch.cuda.synchronize()
+    say(f"lbfgsb: one Cauchy point dispatches {cp_ops.ops} aten ops (n = "
+        f"128, memory 8; the count does not grow with n); one iteration "
+        f"{step_ops.ops}, its direction replayed as one CUDA graph")
+    stats = {what: {"iterations": r[3], "reads": r[4], "kkt": r[5],
+                    "f": float(r[1])} for what, r in runs.items()}
+    stats["cauchy_point_ops"] = cp_ops.ops
+    stats["iteration_ops"] = step_ops.ops
+    stats["walls"] = walls
+    return stats
+
+
+def bratu(n, dtype):
+    """−u″ = eᵘ on (0, 1), u = 0 at both ends, n interior points: (fJ, h),
+    F the h⁻²-scaled residual and J dense (n, n), on the card."""
+    h = 1.0 / (n + 1)
+    one = torch.ones(n - 1, dtype=dtype, device=DEVICE)
+    tri = (2 * torch.eye(n, dtype=dtype, device=DEVICE) - torch.diag(one, 1)
+           - torch.diag(one, -1)) / h ** 2
+
+    def fJ(u):
+        up = torch.cat([u[1:], u.new_zeros(1)])
+        um = torch.cat([u.new_zeros(1), u[:-1]])
+        e = torch.exp(u)
+        return (2 * u - up - um) / h ** 2 - e, tri - torch.diag(e)
+    return fJ, h
+
+
+def phase5_newton(totals):
+    """root_newton on the discretised Bratu problem, n = 512, dense J, in
+    float64 to max|F| ≤ BRATU_TOL64 and in float32 with the default tol
+    (1e-12, out of float32's reach: 64 iterations, as the JAX package);
+    lu_panel four launches an iteration (512 columns in panels of 128)."""
+    out = {}
+    for dtype, tol in ((torch.float64, BRATU_TOL64), (torch.float32, 1e-12)):
+        fJ, h = bratu(BRATU_N, dtype)
+        u0 = torch.zeros(BRATU_N, dtype=dtype, device=DEVICE)
+        reset_counts()
+        host.reads = 0
+        u, it = opt.root_newton(fJ, u0, tol=tol)
+        name = str(dtype).removeprefix("torch.")
+        check_counts(f"root_newton Bratu {name}", read_counts(),
+                     {"lu_panel": 4 * int(it)}, totals)
+        out[dtype] = (u, int(it), host.reads, fJ, h)
+        say(f"root_newton Bratu n = {BRATU_N} {name}: {int(it)} iterations, "
+            f"{host.reads} host reads, lu_panel {4 * int(it)} launches, "
+            f"max|F| = {maxabs(fJ(u)[0]):.3e}")
+    u64, it64, _, fJ64, h = out[torch.float64]
+    r64 = maxabs(fJ64(u64)[0])
+    check(r64 <= BRATU_TOL64 and it64 < 64,
+          f"root_newton Bratu float64: max|F| = {r64:.3e} <= {BRATU_TOL64:g} "
+          f"in {it64} iterations (the floor 4·eps·h⁻² is "
+          f"{4 * 2.0 ** -52 / h ** 2:.2e})")
+    u32, it32 = out[torch.float32][:2]
+    floor32 = 4 * float(torch.finfo(torch.float32).eps) / h ** 2
+    r32 = maxabs(fJ64(u32.double())[0])
+    gap = maxabs(u32.double() - u64)
+    check(it32 == 64 and r32 <= floor32,
+          f"root_newton Bratu float32: {it32} iterations, max|F| of its u "
+          f"evaluated in float64 {r32:.3e} <= the float32 floor "
+          f"4·eps·h⁻² = {floor32:.3e}; max|u32 - u64| = {gap:.3e}")
+    return {str(d).removeprefix("torch."): {"iterations": v[1], "reads": v[2]}
+            for d, v in out.items()}
+
+
+def chebyshev(t, p):
+    """T_0(t), …, T_{p-1}(t) stacked on the last axis."""
+    cols = [torch.ones_like(t), t]
+    while len(cols) < p:
+        cols.append(2 * t * cols[-1] - cols[-2])
+    return torch.stack(cols[:p], -1)
+
+
+def phase5_fit_lin(totals, x, y):
+    """fit_lin of config 5's 4096 points against 16 Chebyshev polynomials
+    of x/2, with regularization 0 (the basis as a sequence of functions)
+    and 1e-3 (as one function giving the design matrix): house_panel for
+    the tall pre-QR, jacobi_sweeps once a sweep; bench.py's normal
+    equations gate on the stacked system, and the coefficients against
+    numpy's float64 lstsq within its forward-error bound."""
+    basis = [lambda t, k=k: chebyshev(t / 2, k + 1)[:, k]
+             for k in range(CHEB_P)]
+    design = chebyshev(x / 2, CHEB_P)
+    out = {}
+    for reg, funcs in ((0.0, basis), (1e-3, lambda t: chebyshev(t / 2,
+                                                                 CHEB_P))):
+        reset_counts()
+        p = opt.fit_lin(x, y, funcs, regularization=reg)
+        counts = read_counts()
+        a, ys = design, y
+        if reg > 0:
+            a = torch.cat([a, reg ** 0.5 * torch.eye(CHEB_P, device=DEVICE)])
+            ys = torch.cat([y, y.new_zeros(CHEB_P)])
+        sweeps = counts["jacobi_sweeps"]
+        sv = la.svd_decomp(a)[1]
+        check(1 <= sweeps <= MAX_SWEEPS, f"fit_lin reg {reg:g}: {sweeps} "
+              "Jacobi sweeps")
+        check_counts(f"fit_lin ({len(a)}, {CHEB_P}) reg {reg:g}", counts,
+                     {"house_panel": 2 if jacobi_repair(sv, CHEB_P) else 1,
+                      "jacobi_sweeps": sweeps}, totals)
+        a64, y64 = a.double().cpu().numpy(), ys.double().cpu().numpy()
+        # bench.py:418-422's gate, max|Aᵀ(A·p − y)| ≤ 1e-3·max|A|²·√N, is
+        # written for square A (M = N = 512); Aᵀ sums the rounding of M
+        # rows, so a tall A takes √M. Evaluated in float64, with the
+        # backward error ‖Aᵀr‖/(‖A‖·(‖A‖·‖p‖ + ‖y‖)) ≤ N·eps beside it
+        p_64 = p.double().cpu().numpy()
+        grad = a64.T @ (a64 @ p_64 - y64)
+        ne = float(np.abs(grad).max())
+        ne_tol = 1e-3 * float(np.abs(a64).max()) ** 2 * len(a64) ** 0.5
+        norm_a = float(np.linalg.norm(a64, 2))
+        be = float(np.linalg.norm(grad) / (norm_a * (
+            norm_a * np.linalg.norm(p_64) + np.linalg.norm(y64))))
+        be_tol = CHEB_P * float(torch.finfo(torch.float32).eps)
+        check(ne <= ne_tol and be <= be_tol,
+              f"fit_lin reg {reg:g}: max |Aᵀ(A·p - y)| = {ne:.3e} <= "
+              f"{ne_tol:.3e} (bench.py:418 with √M), backward error "
+              f"{be:.3e} <= N·eps = {be_tol:.3e}")
+        p64, res, _, s64 = np.linalg.lstsq(a64, y64, rcond=None)
+        kappa = s64[0] / s64[-1]
+        r = np.linalg.norm(a64 @ p64 - y64)
+        # least squares' forward error in float32: eps·(κ + κ²·‖r‖/(‖A‖‖x‖))
+        # relative to ‖x‖, with a factor of 16 for the algorithm's constant
+        bound = 16 * float(torch.finfo(torch.float32).eps) * (
+            kappa + kappa ** 2 * r / (s64[0] * np.linalg.norm(p64))) \
+            * np.linalg.norm(p64)
+        err = float(np.linalg.norm(p.double().cpu().numpy() - p64))
+        check(err <= bound, f"fit_lin reg {reg:g}: ‖p - numpy's float64 "
+              f"lstsq‖ = {err:.3e} <= {bound:.3e} (κ = {kappa:.2f})")
+        out[reg] = {"sweeps": sweeps}
+    return out
+
+
+def phase5_kdtree(totals):
+    """KDTree.nearest of 1024 queries among 262144 points in 8-d, k = 16,
+    float32 (a 1 GiB distance matrix): the returned distances against a
+    float64 recomputation at the returned indices, and on 32 sampled
+    queries the k-th distance against a float64 brute force on the host,
+    both within the float32 rounding of ‖p‖² − 2·q·p + ‖q‖²:
+    8·eps·(‖p‖ + ‖q‖)²."""
+    gen = torch.Generator().manual_seed(SEED + 50)
+    pts = torch.randn((KD_N, KD_D), generator=gen)
+    qs = torch.randn((KD_Q, KD_D), generator=gen)
+    tree = utils.KDTree(pts.to(DEVICE))
+    q = qs.to(DEVICE)
+    reset_counts()
+    dist, idx = tree.nearest(q, k=KD_K)
+    check_counts("KDTree.nearest", read_counts(), {}, totals)
+    p64, q64 = pts.double(), qs.double()
+    near = p64[idx.cpu()]                                   # (Q, k, D)
+    d2 = ((near - q64[:, None, :]) ** 2).sum(-1)
+    eps = float(torch.finfo(torch.float32).eps)
+    tol = 8 * eps * (near.norm(dim=-1) + q64.norm(dim=-1)[:, None]) ** 2
+    gap = float(((dist.double().cpu() ** 2 - d2).abs() / tol).max())
+    ordered = bool((dist[:, 1:] >= dist[:, :-1]).all())
+    distinct = bool((idx.sort(1).values.diff(dim=1) > 0).all())
+    check(tuple(idx.shape) == (KD_Q, KD_K) and ordered and distinct
+          and gap <= 1.0,
+          f"KDTree.nearest ({KD_Q} queries, {KD_N} points, k = {KD_K}): "
+          "ascending, distinct, distances within the float32 bound of a "
+          f"float64 recomputation (worst {gap:.3f} of it)")
+    sample = torch.arange(0, KD_Q, KD_Q // KD_SAMPLE)
+    qs64 = q64[sample]
+    brute = (p64 * p64).sum(1)[None] - 2 * qs64 @ p64.T \
+        + (qs64 * qs64).sum(1)[:, None]
+    kth = brute.topk(KD_K, 1, largest=False).values[:, -1]
+    kth_tol = 8 * eps * (p64.norm(dim=-1).max() + qs64.norm(dim=-1)) ** 2
+    kgap = float(((dist[sample, -1].double().cpu() ** 2 - kth).abs()
+                  / kth_tol).max())
+    check(kgap <= 1.0, f"KDTree.nearest: the k-th distance of {KD_SAMPLE} "
+          "queries against a float64 brute force on the host, worst "
+          f"{kgap:.3f} of the float32 bound")
+    return tree, q
+
+
+def lorenz(t, y):
+    x, yy, z = y[..., 0], y[..., 1], y[..., 2]
+    return torch.stack([10.0 * (yy - x), x * (28.0 - z) - yy,
+                        x * yy - 8.0 / 3.0 * z], -1)
+
+
+def lorenz_rk4_np(y, ts):
+    """The classic RK4 of the Lorenz system in float64 numpy."""
+    def f(y):
+        x, yy, z = y[..., 0], y[..., 1], y[..., 2]
+        return np.stack([10.0 * (yy - x), x * (28.0 - z) - yy,
+                         x * yy - 8.0 / 3.0 * z], -1)
+    out = [y]
+    for t0, t1 in zip(ts[:-1], ts[1:]):
+        h = t1 - t0
+        k1 = f(y)
+        k2 = f(y + h / 2 * k1)
+        k3 = f(y + h / 2 * k2)
+        k4 = f(y + h * k3)
+        y = y + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        out.append(y)
+    return np.stack(out)
+
+
+def rosen_point():
+    gen = torch.Generator().manual_seed(SEED + 51)
+    return (1.0 + 0.1 * torch.randn(128, generator=gen)).to(DEVICE)
+
+
+def small_solvers():
+    """The small solvers of phase 5, once each, as their timed runs repeat
+    them: (name, fn) pairs."""
+    gen = torch.Generator().manual_seed(SEED + 52)
+    y0 = (30 * torch.rand((LORENZ_B, 3), generator=gen) - 15).to(DEVICE)
+    ts = torch.linspace(0.0, 1.0, LORENZ_STEPS + 1, device=DEVICE)
+    z = rosen_point()
+    cubic = lambda r: r ** 3 - 2 * r - 5                    # noqa: E731
+    return [
+        ("odeint_rk4 (4096 Lorenz systems, 1000 steps)",
+         lambda: utils.odeint_rk4(lorenz, y0, ts)),
+        ("num_grad (128-d Rosenbrock)", lambda: opt.num_grad(rosen)(z)),
+        ("num_grad_forward (128-d Rosenbrock)",
+         lambda: opt.num_grad_forward(rosen)(z)),
+        ("min1d_gss float64", lambda: opt.min1d_gss(
+            lambda r: (r - 1.234) ** 2 + 0.5, -10.0, 10.0)),
+        ("root1d_bisect float64",
+         lambda: opt.root1d_bisect(cubic, 2.0, 3.0)),
+        ("root1d_brent float64", lambda: opt.root1d_brent(cubic, 2.0, 3.0)),
+        ("root1d_illinois float64",
+         lambda: opt.root1d_illinois(cubic, 2.0, 3.0)),
+        ("min_nelder_mead helical_valley float64",
+         lambda: opt.min_nelder_mead(opt.test_fn.helical_valley,
+                                     np.array([-1.0, 0.0, 0.0]))),
+        ("min_nelder_mead beale float64",
+         lambda: opt.min_nelder_mead(opt.test_fn.beale,
+                                     np.array([1.0, 1.0]), scale=0.5))], \
+        (y0, ts, z, cubic)
+
+
+def phase5_small(totals):
+    """The small solvers at the reference tests' sizes, each held to its
+    gate; returns their outputs' inputs for the timed runs."""
+    runs, (y0, ts, z, cubic) = small_solvers()
+    outs = {}
+    for what, fn in runs:
+        reset_counts()
+        host.reads = 0
+        outs[what] = fn()
+        check_counts(what, read_counts(), {}, totals)
+        outs[what + " reads"] = host.reads
+    traj = outs[runs[0][0]]
+    held = lorenz_rk4_np(y0[:LORENZ_HELD].double().cpu().numpy(),
+                         ts.double().cpu().numpy())
+    eps = float(torch.finfo(torch.float32).eps)
+    ymax = float(np.abs(held).max())
+    # float32 rounding a step, a random walk over the steps, grown by the
+    # flow's largest Lyapunov exponent over the interval
+    tol = 4 * LORENZ_STEPS ** 0.5 * eps * math.exp(LORENZ_LYAPUNOV) * ymax
+    gap = float(np.abs(traj[:, :LORENZ_HELD].double().cpu().numpy()
+                       - held).max())
+    check(tuple(traj.shape) == (LORENZ_STEPS + 1, LORENZ_B, 3)
+          and bool(torch.isfinite(traj).all()) and gap <= tol,
+          f"odeint_rk4: {LORENZ_HELD} of {LORENZ_B} Lorenz systems over "
+          f"{LORENZ_STEPS} steps within {gap:.3e} <= {tol:.3e} of a float64 "
+          "numpy RK4 (4·√steps·eps·e^(λ·T)·max|y|)")
+    g = torch.func.grad(rosen)(z)
+    f = float(rosen(z))
+    eps_h = {"num_grad": eps ** (1 / 3), "num_grad_forward": eps ** 0.5}
+    hmax = float(torch.diagonal(torch.func.hessian(rosen)(z)).abs().max())
+    for kind in ("num_grad", "num_grad_forward"):
+        got = outs[f"{kind} (128-d Rosenbrock)"]
+        h = eps_h[kind] * float(z.abs().clamp(min=1.0).max())
+        # f's float32 rounding, a few eps·|f|, amplified by 1/h (h ≥ the
+        # root of eps); the forward difference also truncates by up to
+        # h·max|f″|/2 (the central one is exact for the quartic Rosenbrock)
+        tol = 16 * eps * max(1.0, f) / eps_h[kind] + (
+            h * hmax / 2 if kind == "num_grad_forward" else 0.0)
+        err = maxabs(got - g)
+        check(err <= tol, f"{kind} of the 128-d Rosenbrock: max|g - "
+              f"torch.func.grad| = {err:.3e} <= {tol:.3e}")
+    xg = float(outs["min1d_gss float64"])
+    check(abs(xg - 1.234) < 1e-7, f"min1d_gss: x = {xg:.12f}, |x - 1.234| "
+          "< 1e-7")
+    for what in ("root1d_bisect float64", "root1d_brent float64",
+                 "root1d_illinois float64"):
+        r = outs[what]
+        fr = abs(float(cubic(r)))
+        check(r.dtype == torch.float64 and fr < 1e-10,
+              f"{what}: r = {float(r):.15f}, |f(r)| = {fr:.2e} < 1e-10, "
+              f"{outs[what + ' reads']} host reads")
+    for what, sol in (("min_nelder_mead helical_valley float64",
+                       [1.0, 0.0, 0.0]),
+                      ("min_nelder_mead beale float64", [3.0, 0.5])):
+        x, fx, it = outs[what]
+        err = maxabs(x.cpu() - torch.tensor(sol, dtype=x.dtype))
+        check(err < 1e-4, f"{what}: {int(it)} iterations, "
+              f"{outs[what + ' reads']} host reads, f = {float(fx):.3e}, "
+              f"max|x - x*| = {err:.3e} < 1e-4")
+    return runs
+
+
+def phase5(cfg5):
+    """The rest of opt/ and utils/: each path once with its gates and its
+    launches counted, then three timed runs of each (its gated run the
+    warm-up; the unbounded L-BFGS-B's gated run, warm already, is one of
+    its three). Returns (launches by kernel, walls, stats)."""
+    totals = dict.fromkeys(KERNELS, 0)
+    x, y, _, z0 = cfg5[0]
+    stats = {"lbfgsb": phase5_lbfgsb(totals, z0),
+             "root_newton": phase5_newton(totals),
+             "fit_lin": phase5_fit_lin(totals, x, y)}
+    tree, q = phase5_kdtree(totals)
+    runs = phase5_small(totals)
+    fJ32, _ = bratu(BRATU_N, torch.float32)
+    fJ64, _ = bratu(BRATU_N, torch.float64)
+    u32 = torch.zeros(BRATU_N, device=DEVICE)
+    design = lambda t: chebyshev(t / 2, CHEB_P)              # noqa: E731
+    wall = {
+        "lbfgsb_minimize box float32 (128-d Rosenbrock)":
+            wall_ms(lambda: lbfgsb_run(z0, LBFGSB_BOX), 3, False),
+        # its gated run, warm (it replays the box runs' graph), and two more
+        "lbfgsb_minimize unbounded float32 (128-d Rosenbrock)":
+            [stats["lbfgsb"]["walls"]["unbounded float32"]]
+            + wall_ms(lambda: lbfgsb_run(z0, (-math.inf, math.inf)), 2,
+                      False),
+        "root_newton Bratu float64 (n = 512)":
+            wall_ms(lambda: opt.root_newton(fJ64, u32.double(),
+                                            tol=BRATU_TOL64), 3, False),
+        "root_newton Bratu float32 (n = 512, 64 iterations)":
+            wall_ms(lambda: opt.root_newton(fJ32, u32), 3, False),
+        "fit_lin (4096, 16)": wall_ms(lambda: opt.fit_lin(x, y, design),
+                                      3, False),
+        "fit_lin (4096, 16) regularization 1e-3":
+            wall_ms(lambda: opt.fit_lin(x, y, design, regularization=1e-3),
+                    3, False),
+        "KDTree.nearest (1024 of 262144, k = 16)":
+            wall_ms(lambda: tree.nearest(q, k=KD_K), 3, False)}
+    for what, fn in runs:
+        wall[what] = wall_ms(fn, 3, False)
+    return totals, wall, stats
+
+
 def main():
     signal.signal(signal.SIGALRM, _on_deadline)
     signal.alarm(DEADLINE_S)
@@ -3399,10 +3879,19 @@ def main():
     with phase("4 times"):
         rows, wall = phase4(counts, errs, batch, cfg1, cfg2, spd512, eig,
                             svd_in, geig, cfg5)
+    with phase("5 the rest of opt and utils"):
+        more, wall5, stats5 = phase5(cfg5)
+    for row in rows:
+        row["launches"] += more[row["name"]]
+        row["launches_opt_utils"] = more[row["name"]]
+    wall |= wall5
+    say("phase 5 stats: " + json.dumps(stats5))
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     for what, runs in wall.items():
-        say(f"{what} float32 wall ms, {len(runs)} runs: "
+        # the keys of the paths that are not float32 name their dtype
+        dtype = "" if "float64" in what or "float32" in what else " float32"
+        say(f"{what}{dtype} wall ms, {len(runs)} runs: "
             + ", ".join(f"{w:.3f}" for w in runs)
             + (f"; before the redesign of bulge_chase_steps and schur_small "
                f"{WALLS_BEFORE[what]}" if what in WALLS_BEFORE else ""))

@@ -27,11 +27,18 @@ rank-revealing QR and solves (``la.rrqr_decomp``, ``la.rrqr_lstsq``,
 ``schur_small``, ``bulge_chase_steps`` and ``trevc_solve``; the strong
 RRQR and URV (``la.srrqr_decomp_full``, ``la.urv_decomp_full``,
 ``la.urv_lstsq``, ``la.lstsq(method="urv")``), ``la.tri_inv`` and the
-``scan``/``inv`` solves; ``dt``; and ``opt`` up to config 5: the line
-searches, L-BFGS, LM, dogleg and orthogonal distance regression, whose
-structured solve runs ``chol_leaf`` on the card; and the rest of ``la``:
-the SVD by divide and conquer (``la.svd_dc``, whose orthogonality polish
-runs ``chol_leaf``), block Jacobi (``la.svd_jac_blocked``), Kogbetliantz
+``scan``/``inv`` solves; ``dt``; all of ``opt``: the line searches,
+L-BFGS, LM, dogleg and orthogonal distance regression, whose structured
+solve runs ``chol_leaf`` on the card, box-constrained L-BFGS-B
+(``opt.lbfgsb_minimize``, ``opt.min_lbfgsb_gen``), Newton's method for
+roots (``opt.root_newton``, whose LU runs ``lu_panel``), linear
+least-squares fits (``opt.fit_lin``, through ``la.lstsq``:
+``house_panel`` and ``jacobi_sweeps``), Nelder-Mead, numerical
+gradients, golden-section search, the 1-D root finders and the test
+functions; ``utils`` (``regular_simplex``, ``KDTree``, ``odeint_rk4``,
+the iteration and plain-array helpers); and the rest of ``la``: the SVD
+by divide and conquer (``la.svd_dc``, whose orthogonality polish runs
+``chol_leaf``), block Jacobi (``la.svd_jac_blocked``), Kogbetliantz
 (``la.svd_jac_2sided``) and classic Jacobi (``la.svd_jac_classic``),
 whose tall inputs go through ``house_panel``; ``la.bidiag_decomp``; LDLᵀ
 and Bunch-Kaufman (``la.ldl_decomp``, ``la.pldlp_decomp`` and their
@@ -43,6 +50,7 @@ from . import config, dt
 from . import la
 from . import opt
 from . import rand
+from . import utils
 from . import entry
 
 __version__ = "0.1.0"

@@ -31,7 +31,9 @@
 // 8 blocks and kept in their shared memory (the shared regime) when they fit
 // 227 KB a block, so no reflector step reads the matrix from L2; larger
 // systems keep the columns in the caller's global scratch (the global
-// regime). The wrapper (ops/house_stripe.py) picks the regime by bytes and
+// regime), and panels or systems of more rows than one block can stage
+// stage the stripe and V in that scratch too (regime 2, gstage). The
+// wrapper (ops/house_stripe.py) picks the regime by bytes and
 // the cluster size by a rule it states; the launcher checks that a cluster
 // can be placed. The scratch the wrapper passes is column-major per matrix: groups
 // of 8 columns of M rows; qr_gesv's right-hand sides start at group N/8
@@ -180,7 +182,9 @@ int launch_stripe(Kernel kernel, const Shape& sh, int nb, void* stream, Args... 
                                 smem_plan(sh).total * sizeof(T), stream, args...);
 }
 
-Shape gesv_shape(int n, int k, int csize, int shared) {
+// regime: 1 shared, 0 global, 2 global with the stripe and V staged in the
+// scratch too
+Shape gesv_shape(int n, int k, int csize, int regime) {
   Shape sh;
   sh.m = n;
   sh.nhouse = n;
@@ -189,12 +193,13 @@ Shape gesv_shape(int n, int k, int csize, int shared) {
   sh.ngroups = sh.nstripes + sh.ntail;
   sh.ktail = k;
   sh.csize = csize;
-  sh.shared = shared;
+  sh.shared = regime == 1;
+  sh.gstage = regime == 2;
   sh.rowmajor = 0;
   return sh;
 }
 
-Shape panel_shape(int m, int b, int csize, int shared) {
+Shape panel_shape(int m, int b, int csize, int regime) {
   Shape sh;
   sh.m = m;
   sh.nhouse = m < b ? m : b;
@@ -203,28 +208,29 @@ Shape panel_shape(int m, int b, int csize, int shared) {
   sh.ntail = sh.ngroups - sh.nstripes;
   sh.ktail = 0;
   sh.csize = csize;
-  sh.shared = shared;
+  sh.shared = regime == 1;
+  sh.gstage = regime == 2;
   sh.rowmajor = 0;
   return sh;
 }
 
 template <typename T>
-int gesv(T* work, T* x, int nb, int n, int k, int csize, int shared, int stages, void* stream) {
+int gesv(T* work, T* x, int nb, int n, int k, int csize, int regime, int stages, void* stream) {
   if (nb == 0 || n == 0 || k == 0) return (int)cudaSuccess;
-  const Shape sh = gesv_shape(n, k, csize, shared);
-  if (shared)
+  const Shape sh = gesv_shape(n, k, csize, regime);
+  if (sh.shared)
     return launch_stripe<T>(qr_gesv_kernel<T, true>, sh, nb, stream, work, x, sh, n, k, stages);
   return launch_stripe<T>(qr_gesv_kernel<T, false>, sh, nb, stream, work, x, sh, n, k, stages);
 }
 
 template <typename T>
-int panel(T* work, T* r, T* v, T* tau, int nb, int m, int b, int csize, int shared, int rowmajor,
+int panel(T* work, T* r, T* v, T* tau, int nb, int m, int b, int csize, int regime, int rowmajor,
           void* stream) {
   if (nb == 0 || m == 0 || b == 0) return (int)cudaSuccess;
-  if (rowmajor && !shared) return (int)cudaErrorInvalidValue;
-  Shape sh = panel_shape(m, b, csize, shared);
+  if (rowmajor && regime != 1) return (int)cudaErrorInvalidValue;
+  Shape sh = panel_shape(m, b, csize, regime);
   sh.rowmajor = rowmajor ? b : 0;
-  if (shared)
+  if (sh.shared)
     return launch_stripe<T>(house_stripe_kernel<T, true>, sh, nb, stream, work, r, v, tau, sh,
                               b);
   return launch_stripe<T>(house_stripe_kernel<T, false>, sh, nb, stream, work, r, v, tau, sh,
@@ -257,7 +263,8 @@ int nd4js_house_stripe_t_f64(double* work, double* r, double* v, double* tau, in
   return panel<double>(work, r, v, tau, nb, m, b, csize, shared, rowmajor, stream);
 }
 
-// Shared memory (bytes) one block of a launch asks for: the wrapper's plan
+// Shared memory (bytes) one block of a launch asks for, in regime `shared`
+// (1 shared, 0 global, 2 global staged in the scratch): the wrapper's plan
 // of regime and cluster size reads it here.
 size_t nd4js_house_stripe_smem(int m, int ncols, int nhouse, int ktail, int csize, int shared,
                                int elem) {
@@ -270,7 +277,8 @@ size_t nd4js_house_stripe_smem(int m, int ncols, int nhouse, int ktail, int csiz
   sh.ntail = sh.ngroups - sh.nstripes;
   sh.ktail = ktail;
   sh.csize = csize;
-  sh.shared = shared;
+  sh.shared = shared == 1;
+  sh.gstage = shared == 2;
   sh.rowmajor = 0;
   return st::smem_plan(sh).total * (size_t)elem;
 }

@@ -12,7 +12,12 @@
 //   shared regime  its own shared memory (a slab of 8-column slots),
 //   global regime  the caller's column-major scratch in global memory, when
 //                  the slabs would not fit 227 KB even at C = 8; the stripe
-//                  being factored is then staged in shared memory.
+//                  being factored is then staged in shared memory, and so
+//                  is V of the last two stripes (24 values a row), or, for
+//                  more rows than that leaves room for (about 2400 in
+//                  float32, 1200 in float64), both are staged in the
+//                  scratch too, after the matrices' columns, one stage
+//                  area a block (gstage).
 //
 // Round s: the owner of stripe s has factored it (8 rank-1 reflector steps
 // inside the stripe, one reduction each, in the warps that hold the
@@ -55,6 +60,8 @@ struct Shape {
   int ktail;     // right-hand sides of the back substitution (0: none)
   int csize;     // cluster size
   int shared;    // 1: the shared regime, 0: the global regime
+  int gstage;    // global regime only: 1 stages the stripe and V in the
+                 // scratch (stage_elems a block), not in shared memory
   int rowmajor;  // shared regime only: 0, or the columns of a row-major
                  // (m, rowmajor) panel that the slabs load straight
 };
@@ -80,6 +87,13 @@ __host__ __device__ inline int max_slots(const Shape& sh) {
 // reads 8 columns of 4 rows spreads over the banks
 __host__ __device__ inline int odd_ld(int m) { return m | 1; }
 
+// Elements of one block's stage area in the scratch (gstage): the stripe
+// being factored, then V of the last two stripes.
+// nd4js_tpu_torch/ops/house_stripe.py::_stage_elems mirrors this.
+__host__ __device__ inline size_t stage_elems(int m) {
+  return (size_t)kW * odd_ld(m) + (size_t)2 * kW * m;
+}
+
 __host__ __device__ inline int block_threads(int m) {
   return m <= 128 ? 128 : (m <= 256 ? 256 : kMaxThreads);
 }
@@ -98,9 +112,9 @@ __host__ __device__ inline Smem smem_plan(const Shape& sh) {
   p.store = o;
   o += sh.shared ? slots * kW * ld : 0;
   p.sbuf = o;
-  o += sh.shared ? 0 : kW * ld;
+  o += (sh.shared || sh.gstage) ? 0 : kW * ld;
   p.vbuf = o;
-  o += (size_t)2 * kW * sh.m;
+  o += sh.gstage ? 0 : (size_t)2 * kW * sh.m;
   p.tl = o;    // T of the last two stripes, [2][8][8]
   o += 2 * kW * kW;
   p.taur = o;  // their taus, [2][8]
@@ -206,6 +220,12 @@ struct Ctx {
     }
     sbuf = base + p.sbuf;
     vbuf = base + p.vbuf;
+    if (!kShared && sh.gstage) {
+      // after every matrix's columns, one stage area a block
+      sbuf = work + (size_t)(gridDim.x / sh.csize) * sh.ngroups * kW * sh.m +
+             (size_t)blockIdx.x * stage_elems(sh.m);
+      vbuf = sbuf + (size_t)kW * odd_ld(sh.m);
+    }
     tl = base + p.tl;
     taur = base + p.taur;
     gs = base + p.gs;

@@ -11,7 +11,9 @@ Each matrix runs on one thread-block cluster, its columns spread over the
 blocks in groups of 8 (``plan`` states the rule). In the shared regime the
 columns stay in the cluster's shared memory; a system too large for a
 cluster of 8 keeps them in global memory (the global regime), with the
-stripe being factored staged in shared memory.
+stripe being factored and V of the last two stripes staged in shared
+memory; one of more rows than a block can stage (about 2400 in float32,
+1200 in float64) stages them in global memory too (``STAGED``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,10 @@ __all__ = ["gesv_plan", "house_stripe_t", "house_stripe_t_ref", "plan",
 
 STRIPE = 8
 CLUSTER_SIZES = (1, 2, 4, 8)
+# The regimes of ``plan``, as the kernels take them: the columns in shared
+# memory (True, 1), in global memory (False, 0), or in global memory with
+# the stripe and V staged there too (STAGED)
+STAGED = 2
 # SMs of an H100 SXM
 SMS = 132
 # The cluster rule's two constants (``plan``), from timings on an H100
@@ -133,8 +139,9 @@ def qr_gesv_ref(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def smem_bytes(m: int, ncols: int, n_house: int, ktail: int, cluster: int,
                shared: bool, dtype: torch.dtype) -> int:
-    """Shared memory one block of a launch asks for, from ``smem_plan`` of
-    ``csrc/house_stripe.cuh`` (so it needs the built kernel library)."""
+    """Shared memory one block of a launch asks for in regime ``shared``,
+    from ``smem_plan`` of ``csrc/house_stripe.cuh`` (so it needs the built
+    kernel library)."""
     return _build.library().nd4js_house_stripe_smem(
         m, ncols, n_house, ktail, cluster, int(shared),
         torch.finfo(dtype).bits // 8)
@@ -152,9 +159,12 @@ def plan(nb: int, m: int, ncols: int, n_house: int, ktail: int,
     does, raised to the largest size up to LARGEST_CLUSTER that keeps the
     launch within THREADS_PER_SM threads an SM (nb·C·threads ≤ that·SMs)
     and gives no block fewer than one stripe. Else the global regime, with
-    the cluster size of the same rule. Raises ValueError when not even the
-    global regime fits. The bytes come from :func:`smem_bytes`, so only a
-    process that can build the kernels plans a launch.
+    the cluster size of the same rule, and when one block cannot stage a
+    stripe's rows, the global regime staged in global memory (STAGED).
+    Raises ValueError when not even that fits (a back substitution of
+    thousands of right-hand sides). The bytes come from
+    :func:`smem_bytes`, so only a process that can build the kernels plans
+    a launch.
     """
     nstripes = -(-n_house // STRIPE)
     threads = 128 if m <= 128 else (256 if m <= 256 else 512)
@@ -163,19 +173,38 @@ def plan(nb: int, m: int, ncols: int, n_house: int, ktail: int,
         if c <= min(LARGEST_CLUSTER, nstripes) \
                 and nb * c * threads <= THREADS_PER_SM * sms:
             free = c
-    for shared in (True, False):
+    for shared in (True, False, STAGED):
         fits = [c for c in CLUSTER_SIZES
                 if smem_bytes(m, ncols, n_house, ktail, c, shared, dtype)
                 <= _build.SMEM_MAX]
         if fits:
             return max(fits[0], free), shared
     raise ValueError(f"house_stripe: {m} rows do not fit one block's shared "
-                     f"memory even in the global regime ({dtype})")
+                     f"memory even in the global regime staged in global "
+                     f"memory ({dtype})")
 
 
 def regime(cluster: int, shared: bool) -> str:
-    return (f"{'shared' if shared else 'global'} memory, cluster of "
-            f"{cluster}")
+    where = {True: "shared memory", False: "global memory",
+             STAGED: "global memory, staged there"}[shared]
+    return f"{where}, cluster of {cluster}"
+
+
+def _stage_elems(m: int) -> int:
+    """Elements of one block's stage area in the scratch (STAGED), from
+    ``stage_elems`` of ``csrc/house_stripe.cuh``: the stripe (8 columns of
+    leading dimension m | 1), then V of two stripes."""
+    return STRIPE * (m | 1) + 2 * STRIPE * m
+
+
+def _scratch(nb: int, groups: int, m: int, cluster: int, shared,
+             like: torch.Tensor) -> torch.Tensor:
+    """Zeros (Nb, 8·groups, M) for the column-major scratch; in the STAGED
+    regime the view of a buffer that also holds, after it, one stage area
+    for each of the launch's Nb·cluster blocks."""
+    cols = nb * groups * STRIPE * m
+    extra = nb * cluster * _stage_elems(m) if shared == STAGED else 0
+    return like.new_zeros(cols + extra)[:cols].view(nb, groups * STRIPE, m)
 
 
 def gesv_plan(a: torch.Tensor, y: torch.Tensor):
@@ -205,14 +234,16 @@ def _sms_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gesv_scratch(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _gesv_scratch(a: torch.Tensor, y: torch.Tensor, cluster: int = 1,
+                  shared=True) -> torch.Tensor:
     """[A | 0 | y | 0] column-major per matrix, (Nb, 8·groups, N): the
-    right-hand sides start at a multiple of 8."""
+    right-hand sides start at a multiple of 8 (with the stage areas of
+    :func:`_scratch` after it in the STAGED regime)."""
     nb, n, _ = a.shape
     k = y.shape[-1]
     n8 = -(-n // STRIPE) * STRIPE
     k8 = -(-k // STRIPE) * STRIPE
-    work = a.new_zeros((nb, n8 + k8, n))
+    work = _scratch(nb, (n8 + k8) // STRIPE, n, cluster, shared, a)
     work[:, :n] = a.mT
     work[:, n8:n8 + k] = y.mT
     return work
@@ -259,7 +290,8 @@ def _qr_gesv_in(a: torch.Tensor, y: torch.Tensor, cluster: int,
     """:func:`qr_gesv` on CUDA tensors in the given regime and cluster size
     (the card's checks run every one); one that does not fit raises."""
     x = a.new_empty(y.shape)
-    _launch_gesv(_gesv_scratch(a, y), x, y.shape[-1], cluster, shared)
+    _launch_gesv(_gesv_scratch(a, y, cluster, shared), x, y.shape[-1],
+                 cluster, shared)
     return x
 
 
@@ -299,16 +331,18 @@ def _stripe_panel(panel: torch.Tensor, cluster: int, shared: bool,
     column-major scratch of :func:`_panel_scratch`."""
     nb, m, b = panel.shape
     if direct is None:
-        direct = shared and panel.is_contiguous()
-    work = panel if direct else _panel_scratch(panel)
+        direct = shared == 1 and panel.is_contiguous()
+    work = panel if direct else _panel_scratch(panel, cluster, shared)
     return _launch_panel(work, m, b, cluster, shared, kernel, direct)
 
 
-def _panel_scratch(panel: torch.Tensor) -> torch.Tensor:
+def _panel_scratch(panel: torch.Tensor, cluster: int = 1,
+                   shared=True) -> torch.Tensor:
     """The panel column-major per matrix, (Nb, 8·groups, M), zero columns up
-    to the next multiple of 8: the layout the stripe body reads."""
+    to the next multiple of 8: the layout the stripe body reads (with the
+    stage areas of :func:`_scratch` after it in the STAGED regime)."""
     nb, m, b = panel.shape
-    work = panel.new_zeros((nb, -(-b // STRIPE) * STRIPE, m))
+    work = _scratch(nb, -(-b // STRIPE), m, cluster, shared, panel)
     work[:, :b] = panel.mT
     return work
 

@@ -62,7 +62,8 @@ def test_triangular_solves_match_jax_with_broadcasting(fn):
 @functools.lru_cache(maxsize=None)
 def _jax_chol_inv_core(n: int, base: int):
     a = _spd(np.random.default_rng(91 + n), (2, n, n))
-    return a, [np.asarray(r) for r in jchol._chol_inv_core(a, base=base)]
+    return a, [np.asarray(r) for r in jax.jit(
+        jchol._chol_inv_core, static_argnames="base")(a, base=base)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,9 +151,10 @@ def test_config2_end_to_end_small():
     a = rng.standard_normal((8, n, n)).astype(np.float32)
     spd = (a @ np.swapaxes(a, -1, -2) / n + 2 * np.eye(n)).astype(np.float32)
     y = rng.standard_normal((8, n, 1)).astype(np.float32)
-    jxl = np.asarray(jla.lu_solve_fused(spd, y))
-    jL, jLi = jla.cholesky_decomp(spd, inv=True)
-    jxc = np.asarray(jla.cholesky_solve(jL, y, l_inv=jLi))
+    jxl = np.asarray(jax.jit(jla.lu_solve_fused)(spd, y))
+    jL, jLi = jax.jit(jla.cholesky_decomp, static_argnames="inv")(spd,
+                                                                  inv=True)
+    jxc = np.asarray(jax.jit(jla.cholesky_solve)(jL, y, l_inv=jLi))
     xl = la.lu_solve_fused(_t(spd), _t(y))
     L, Li = la.cholesky_decomp(_t(spd), inv=True)
     xc = la.cholesky_solve(L, _t(y), l_inv=Li)

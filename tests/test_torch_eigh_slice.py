@@ -11,9 +11,11 @@ JAX package's own: orthogonality ≤ 4·eps·n and reconstruction
 divide-and-conquer path, whose eps-scale jitter of close poles leaves
 more. The JAX package's divide-and-conquer compiles slowly on the CPU,
 so it is called once at n > 64 (a (2, 128, 128) batch) and its results
-are cached."""
+are cached; its references run jitted (eager, its interpret-mode
+kernels take several times as long)."""
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -58,7 +60,7 @@ def _tridiag(d, e):
 @functools.lru_cache(maxsize=None)
 def _jax_jacobi(shape):
     a = _sym(np.random.default_rng(70 + shape[-1]), shape)
-    return a, [np.asarray(x) for x in jla.eigh_jacobi(a)]
+    return a, [np.asarray(x) for x in jax.jit(jla.eigh_jacobi)(a)]
 
 
 @pytest.mark.parametrize("shape", [(6, 6), (7, 7), (2, 3, 16, 16),
@@ -104,8 +106,8 @@ def test_eigh_jacobi_degenerate_rotated_spectrum():
 def _jax_tridiag_recursive():
     rng = np.random.default_rng(72)
     d, e = rng.standard_normal((2, 40)), rng.standard_normal((2, 39))
-    return d, e, [np.asarray(x) for x in jtd.tridiag_eigh_dc(
-        d, e, method="recursive")]
+    return d, e, [np.asarray(x) for x in jax.jit(functools.partial(
+        jtd.tridiag_eigh_dc, method="recursive"))(d, e)]
 
 
 def test_tridiag_eigh_dc_recursive_matches_jax():
@@ -126,8 +128,8 @@ def _jax_dc_128():
     """One (2, 128, 128) batch: the JAX package's sytrd (d, e) and its
     eigh_tridiag_dc, the one call of its divide-and-conquer at n > 64."""
     a = _sym(np.random.default_rng(73), (2, 128, 128))
-    d, e, _ = (np.asarray(x) for x in jsytrd.sytrd(a))
-    jw, jv = (np.asarray(x) for x in jla.eigh_tridiag_dc(a))
+    d, e, _ = (np.asarray(x) for x in jax.jit(jsytrd.sytrd)(a))
+    jw, jv = (np.asarray(x) for x in jax.jit(jla.eigh_tridiag_dc)(a))
     return a, d, e, jw, jv
 
 
@@ -173,7 +175,7 @@ def test_eigh_below_128_takes_jacobi_and_matches_jax():
     w, v = la.eigh(a, device=CPU)
     wj, vj = la.eigh_jacobi(a, device=CPU)
     assert torch.equal(w, wj) and torch.equal(v, vj)
-    jw = np.asarray(jla.eigh(a)[0])
+    jw = np.asarray(jax.jit(jla.eigh)(a)[0])
     np.testing.assert_allclose(_np(w), jw, rtol=1e-9, atol=1e-10)
     assert_eigh_contract(w, v, a, 4 * EPS64 * 127,
                          1e-10 * max(1.0, np.abs(a).max()) * 127)

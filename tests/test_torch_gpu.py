@@ -38,8 +38,10 @@ contract (64·eps·W) and its eigenvalues against the plain version's
 ``trevc_solve``'s unit columns within TOL of the plain version's; the
 general eigen slice under bench.py's config 4 gate; ``chol_leaf`` at config
 5's (4096, 1, 1) and (1, 4, 4); a short ``odr_lm`` and ``lbfgs_minimize``
-in float64 within 1e-8 of the CPU port's; and config 5 under bench.py's
-gate.
+in float64 within 1e-8 of the CPU port's; config 5 under bench.py's
+gate; L-BFGS-B's Cauchy point and subspace step within 1e-12 and its steps
+(the direction replayed as a CUDA graph) within 1e-10 of the CPU port's;
+and ``KDTree.nearest``'s indices equal to the CPU's, ties included.
 """
 import importlib
 
@@ -47,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from nd4js_tpu_torch import la, opt
+from nd4js_tpu_torch import la, opt, utils
 from nd4js_tpu_torch.core import host
 from nd4js_tpu_torch.la import qr
 from nd4js_tpu_torch.ops import _build
@@ -176,19 +178,24 @@ def test_qr_slice_on_the_card_matches_the_cpu(cuda, dtype):
 STRIPE_SHAPES = [(3, 48, 16), (2, 64, 17), (3, 96, 24), (2, 6, 12),
                  (4, 128, 128), (2, 512, 128)]
 STRIPE_GLOBAL = {torch.float32: (1, 2048, 128), torch.float64: (1, 1024, 128)}
+# more rows than one block can stage: the stripe and V staged in global
+# memory too (fit_lin's (4096, 16) panel of config 5's points)
+STRIPE_STAGED = {torch.float32: (1, 4096, 16), torch.float64: (2, 2048, 40)}
 
 
-@pytest.mark.parametrize("shape", STRIPE_SHAPES + ["global"])
+@pytest.mark.parametrize("shape", STRIPE_SHAPES + ["global", "staged"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_house_stripe_t_kernel_matches_plain_version(cuda, shape, dtype):
     """R, V and taus within TOL·max|A| of the plain version, with a zero
     column (τ = 0), in the plan's regime; and against house_panel's kernel
     (a drop-in) within the same tolerance."""
-    shape = STRIPE_GLOBAL[dtype] if shape == "global" else shape
+    want = {"global": False, "staged": hs.STAGED}.get(shape, True)
+    shape = {"global": STRIPE_GLOBAL[dtype],
+             "staged": STRIPE_STAGED[dtype]}.get(shape, shape)
     a = _on(cuda, np.random.default_rng(34).standard_normal(shape), dtype)
     a[0, :, shape[-1] // 2] = 0
     c, shared = hs.stripe_plan(a)
-    assert shared == (shape != STRIPE_GLOBAL[dtype])
+    assert shared == want
     before = hs.stripe_launches
     got = hs.house_stripe_t(a)
     torch.cuda.synchronize()
@@ -317,7 +324,9 @@ def test_plan_shared_regime_fits_and_global_regime_is_a_last_resort(
         cuda):
     """Whatever the plan picks fits 227 KB a block; the shared regime is
     taken whenever some cluster of at most 8 holds the columns; beyond
-    what one block can stage, plan raises."""
+    what one block can stage, the stripe is staged in global memory too;
+    plan raises only where the back substitution's right-hand sides
+    alone overflow a block."""
     for m in (8, 64, 200, 256, 512, 700, 1000):
         for dtype in (torch.float32, torch.float64):
             for ncols, nh, kt in ((m + 8, m, 3), (min(m, 128), min(m, 128),
@@ -328,8 +337,10 @@ def test_plan_shared_regime_fits_and_global_regime_is_a_last_resort(
                 fits8 = hs.smem_bytes(m, ncols, nh, kt, 8, True, dtype) \
                     <= _build.SMEM_MAX
                 assert shared == fits8
+    assert hs.plan(1, 4000, 4008, 4000, 1, torch.float64)[1] == hs.STAGED
+    assert hs.plan(1, 4096, 16, 16, 0, torch.float32)[1] == hs.STAGED
     with pytest.raises(ValueError, match="global regime"):
-        hs.plan(1, 4000, 4008, 4000, 1, torch.float64)
+        hs.plan(1, 4000, 4000 + 8000, 4000, 8000, torch.float64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1492,3 +1503,116 @@ def test_sequential_jacobi_on_the_card_matches_the_cpu(cuda, method):
         for _ in range(2):
             got = kog._kog_core(r.to(cuda), 30, tol)[3]
             assert got.cpu().tolist() == want.tolist()
+
+
+def _lbfgsb_state(n, steps):
+    """The port's L-BFGS-B state after ``steps`` steps on the n-d
+    Rosenbrock in [−2, 0.5]ⁿ from −1s, float64 on the CPU."""
+    lbfgsb = importlib.import_module("nd4js_tpu_torch.opt.lbfgsb")
+    fg, lo, hi, st = lbfgsb._init_b(_rosen, -np.ones(n), (-2.0, 0.5), 8,
+                                    "cpu")
+    for _ in range(steps):
+        st = lbfgsb._lbfgsb_step(fg, lo, hi, st)
+    return lbfgsb, fg, lo, hi, st
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return type(tree)(*(_to(t, dev) for t in tree))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _leaves(t)]
+
+
+def test_lbfgsb_cauchy_point_subspace_step_and_steps_on_the_card(cuda):
+    """On a 64-d state with a full memory, float64: the Cauchy point, c
+    and the subspace minimiser within 1e-12·max(1, |value|) of the CPU
+    port's and ``free`` equal; then three L-BFGS-B steps from that state
+    (the card's direction eager, captured as a CUDA graph, replayed),
+    every field within 1e-10 relative of the CPU's."""
+    sol = importlib.import_module("nd4js_tpu_torch.opt._lbfgsb_solver")
+    lbfgsb, fg, lo, hi, st = _lbfgsb_state(64, 12)
+    rng = np.random.default_rng(70)
+    g = torch.from_numpy(rng.standard_normal(64))
+    outs = []
+    for dev in ("cpu", cuda):
+        wk = sol.compact_wk(_to(st.mem, dev))
+        x, gd, lod, hid = (t.to(dev) for t in (st.x, g, lo, hi))
+        x_cp, c, free = sol.cauchy_point(wk, x, gd, lod, hid)
+        x_bar = sol.subspace_step(wk, x, gd, x_cp, c, free, lod, hid)
+        outs.append([t.cpu() for t in (x_cp, c, free, x_bar)])
+    (x_cp, c, free, x_bar), want = outs[1], outs[0]
+    assert torch.equal(free, want[2]) and (~free).any()
+    for got, w in ((x_cp, want[0]), (c, want[1]), (x_bar, want[3])):
+        assert float((got - w).abs().max()) \
+            <= 1e-12 * max(1.0, float(w.abs().max()))
+    cpu_st, card_st = st, _to(st, cuda)
+    for _ in range(3):
+        cpu_st = lbfgsb._lbfgsb_step(fg, lo, hi, cpu_st)
+        card_st = lbfgsb._lbfgsb_step(fg, lo.to(cuda), hi.to(cuda), card_st)
+        for got, w in zip(_leaves(card_st), _leaves(cpu_st)):
+            got = got.cpu()
+            if w.dtype.is_floating_point:
+                assert float((got - w).abs().max()) \
+                    <= 1e-10 * max(1e-300, float(w.abs().max()))
+            else:
+                assert torch.equal(got, w)
+
+
+def test_lbfgsb_minimize_on_the_card_matches_the_cpu_port(cuda):
+    """lbfgsb_minimize of a 16-d Rosenbrock in [−2, 0.5]¹⁶, float64: the
+    same iterations, x within 1e-8 of the CPU port's."""
+    z0 = -np.ones(16)
+    want = opt.lbfgsb_minimize(_rosen, z0, (-2.0, 0.5), device="cpu")
+    got = opt.lbfgsb_minimize(_rosen, z0, (-2.0, 0.5), device=cuda)
+    assert int(got[3]) == int(want[3])
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-8
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kdtree_nearest_on_the_card_matches_the_cpu(cuda, dtype):
+    """KDTree.nearest on the card returns the CPU's indices, ties
+    included (a 6×6 lattice queried at lattice points, cell centres and
+    edge midpoints, whose squared distances are exact), and on 2000
+    seeded normal points in 4-d; distances within TOL·max(1, max dist)."""
+    g = np.stack(np.meshgrid(np.arange(6.0), np.arange(6.0),
+                             indexing="ij"), -1).reshape(-1, 2)
+    rng = np.random.default_rng(71)
+    lattice = (g[rng.permutation(len(g))],
+               np.array([[2.0, 2.0], [1.5, 1.5], [2.0, 0.5], [0.0, 0.0],
+                         [5.5, 5.5], [3.0, 1.5]]))
+    normal = (rng.standard_normal((2000, 4)), rng.standard_normal((64, 4)))
+    for pts, q in (lattice, normal):
+        for k in (1, 4, 9, 17):
+            want = utils.KDTree(torch.from_numpy(pts).to(dtype)).nearest(
+                torch.from_numpy(q).to(dtype), k=k)
+            got = utils.KDTree(torch.from_numpy(pts).to(cuda, dtype)).nearest(
+                torch.from_numpy(q).to(cuda, dtype), k=k)
+            assert torch.equal(got[1].cpu(), want[1]), k
+            assert float((got[0].cpu() - want[0]).abs().max()) \
+                <= TOL[dtype] * max(1.0, float(want[0].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lstsq_of_a_tall_matrix_on_the_card_matches_the_cpu(cuda, dtype):
+    """lstsq of (4096, 16), fit_lin's shape on config 5's points: its
+    pre-QR panel has more rows than one block of the stripe kernel can
+    stage, so the stripe is staged in global memory (before, the plan
+    raised). x within 1e3·eps·max|x| of the CPU port's (κ(A) about 5)."""
+    rng = np.random.default_rng(72)
+    t = rng.uniform(-1.0, 1.0, 4096)
+    a = np.stack([np.cos(k * np.arccos(t)) for k in range(16)], -1)
+    y = (t ** 3 - t + 0.01 * rng.standard_normal(4096))[:, None]
+    want = la.lstsq(torch.from_numpy(a).to(dtype), torch.from_numpy(y).to(
+        dtype))
+    before = hp.launches
+    got = la.lstsq(_on(cuda, a, dtype), _on(cuda, y, dtype))
+    torch.cuda.synchronize()
+    assert hp.launches >= before + 1
+    eps = torch.finfo(dtype).eps
+    assert float((got.cpu() - want).abs().max()) \
+        <= 1e3 * eps * float(want.abs().max())

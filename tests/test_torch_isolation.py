@@ -99,11 +99,39 @@ def test_the_rest_of_la_and_rand_are_among_those_checked():
             "la/eye_diag", "la/misc", "rand/__init__", "rand/rng"} <= found
 
 
-@pytest.mark.parametrize("pkg", ["la", "rand"])
+def test_the_rest_of_opt_and_utils_are_among_those_checked():
+    """The modules of the rest of ``opt`` and of ``utils`` are found by the
+    walk above, so they too import without JAX, and by the source scans
+    below."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"opt/lbfgsb", "opt/newton", "opt/fit_lin", "opt/num_grad",
+            "opt/gss", "opt/root1d", "opt/nelder_mead", "opt/test_fn",
+            "utils/__init__", "utils/geom", "utils/iter", "utils/spatial",
+            "utils/integrate", "utils/arrays"} <= found
+
+
+@pytest.mark.parametrize("pkg", ["opt", "utils"])
+def test_every_name_the_jax_package_exports_is_in_the_port(pkg):
+    """Every name that ``nd4js_tpu/<pkg>/__init__.py`` imports, its
+    submodules ``line_search`` and ``test_fn`` included, is in the port's
+    ``__all__``, and the port's ``__all__`` names only what it has."""
+    import importlib
+    tree = ast.parse((ROOT / "nd4js_tpu" / pkg / "__init__.py").read_text())
+    names = {a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) and node.level == 1
+             for a in node.names}
+    port = importlib.import_module(f"nd4js_tpu_torch.{pkg}")
+    assert names, pkg
+    assert names <= set(port.__all__), sorted(names - set(port.__all__))
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+@pytest.mark.parametrize("pkg", ["la", "rand", "opt", "utils"])
 def test_every_public_name_of_the_jax_package_is_in_the_port(pkg):
-    """Every public function and class of ``nd4js_tpu.la`` and
-    ``nd4js_tpu.rand`` (its submodules aside) is in the port's ``la`` and
-    ``rand``, listed in their ``__all__``."""
+    """Every public function and class of ``nd4js_tpu.la``,
+    ``nd4js_tpu.rand``, ``nd4js_tpu.opt`` and ``nd4js_tpu.utils`` (their
+    submodules aside) is in the port's, listed in its ``__all__``."""
     import importlib
     import types
     ref = importlib.import_module(f"nd4js_tpu.{pkg}")
@@ -121,7 +149,9 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_chip_smoke_imports_only_the_port_torch_numpy_and_stdlib():
-    allowed = {"nd4js_tpu_torch", "torch", "numpy", "__future__"}
+    """scipy aside: its L-BFGS-B, imported where it runs, is a witness
+    printed beside the port's, never a gate."""
+    allowed = {"nd4js_tpu_torch", "torch", "numpy", "scipy", "__future__"}
     extra = _top_level_imports(ROOT / "chip_smoke.py") - allowed
     assert extra <= set(sys.stdlib_module_names), extra
 

@@ -8,7 +8,9 @@ LU and P are unique under the pivot rule, so they are compared directly:
 P exactly, LU to 1e-10·max|A|·max(M, N) in float64 and 1e-4·max|A|·N in
 float32 (the packages sum in different orders); x within the
 forward-error bound of the solve and its backward error within N·eps
-and 8× the JAX package's (``assert_x_close``)."""
+and 8× the JAX package's (``assert_x_close``). The JAX references run
+jitted: eager, their interpret-mode panels take seconds a call."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -19,13 +21,17 @@ from nd4js_tpu_torch import la
 from tests.test_torch_chol_lu_slice import _close
 from tests.test_torch_qr_slice import CPU, _t, assert_x_close
 
+jlu_decomp = jax.jit(jla.lu_decomp)
+jlu_solve = jax.jit(jla.lu_solve)
+jlu_solve_fused = jax.jit(jla.lu_solve_fused)
+
 
 @pytest.mark.parametrize("shape", [(2, 9, 9), (7, 3), (3, 7), (150, 40),
                                    (40, 150), (129, 131)])
 def test_lu_decomp_matches_jax(shape):
     """LU to 1e-10·max|A| and P equal, over one to two panels of 128."""
     a = np.random.default_rng(95).standard_normal(shape)
-    jlu, jp = jla.lu_decomp(a)
+    jlu, jp = jlu_decomp(a)
     lu, p = la.lu_decomp(a, device=CPU)
     assert p.dtype == torch.int32 and p.shape == shape[:-1]
     np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
@@ -35,7 +41,7 @@ def test_lu_decomp_matches_jax(shape):
 def test_lu_decomp_float32_and_integer_input():
     rng = np.random.default_rng(96)
     a = rng.standard_normal((2, 24, 24)).astype(np.float32)
-    jlu, jp = jla.lu_decomp(a)
+    jlu, jp = jlu_decomp(a)
     lu, p = la.lu_decomp(_t(a))
     assert lu.dtype == torch.float32
     np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
@@ -43,7 +49,7 @@ def test_lu_decomp_float32_and_integer_input():
     ai = rng.integers(-5, 5, (6, 6))
     lu, _ = la.lu_decomp(ai, device=CPU)
     assert lu.dtype == torch.float64
-    _close(lu, jla.lu_decomp(ai)[0], 5 * 6, np.float64)
+    _close(lu, jlu_decomp(ai)[0], 5 * 6, np.float64)
 
 
 def test_lu_solve_matches_jax_with_broadcasting():
@@ -51,8 +57,8 @@ def test_lu_solve_matches_jax_with_broadcasting():
     rng = np.random.default_rng(97)
     a = rng.standard_normal((2, 3, 12, 12))
     y = rng.standard_normal((12, 2))
-    jlu, jp = jla.lu_decomp(a)
-    want = np.asarray(jla.lu_solve(jlu, jp, y))
+    jlu, jp = jlu_decomp(a)
+    want = np.asarray(jlu_solve(jlu, jp, y))
     lu, p = la.lu_decomp(_t(a))
     got = la.lu_solve(lu, p, _t(y))
     assert got.shape == (2, 3, 12, 2)
@@ -66,7 +72,7 @@ def test_lu_solve_fused_matches_jax(n, k, dtype):
     rng = np.random.default_rng(98 + n)
     a = rng.standard_normal((2, n, n)).astype(dtype)
     y = rng.standard_normal((2, n, k)).astype(dtype)
-    want = np.asarray(jla.lu_solve_fused(a, y))
+    want = np.asarray(jlu_solve_fused(a, y))
     got = la.lu_solve_fused(_t(a), _t(y))
     assert got.dtype == torch.from_numpy(a).dtype
     assert_x_close(got, want, a, dtype, y)
@@ -77,7 +83,7 @@ def test_lu_solve_fused_falls_back_above_128_like_jax():
     rng = np.random.default_rng(234)
     a = rng.standard_normal((136, 136))
     y = rng.standard_normal((136, 2))
-    want = np.asarray(jla.lu_solve_fused(a, y))
+    want = np.asarray(jlu_solve_fused(a, y))
     got = la.lu_solve_fused(_t(a), _t(y))
     assert_x_close(got, want, a, np.float64, y)
 
@@ -89,10 +95,10 @@ def test_lu_solve_fused_vector_rhs_permutation_and_singular():
     x = la.lu_solve_fused(p, np.array([2.0, 3.0]), device=CPU)
     np.testing.assert_array_equal(x.numpy(), [3.0, 2.0])
     np.testing.assert_array_equal(
-        x.numpy(), np.asarray(jla.lu_solve_fused(p, np.array([2.0, 3.0]))))
+        x.numpy(), np.asarray(jlu_solve_fused(p, np.array([2.0, 3.0]))))
     z = la.lu_solve_fused(np.zeros((3, 3)), np.ones((3, 1)), device=CPU)
     assert not np.isfinite(z.numpy()).all()
     assert not np.isfinite(np.asarray(
-        jla.lu_solve_fused(np.zeros((3, 3)), np.ones((3, 1))))).all()
+        jlu_solve_fused(np.zeros((3, 3)), np.ones((3, 1))))).all()
     with pytest.raises(ValueError, match="square"):
         la.lu_solve_fused(np.zeros((3, 4)), np.ones(3), device=CPU)
