@@ -89,7 +89,26 @@ Phases, each announced by a flushed line at its start and its end:
    steps, ``opt.num_grad``/``num_grad_forward`` of the 128-d Rosenbrock,
    ``opt.min1d_gss``, the three ``opt.root1d_*`` and
    ``opt.min_nelder_mead`` on the helical valley and Beale's function.
-   Its launches are added to the kernels' counts.
+   Its launches are added to the kernels' counts;
+6. the core surface, io and parallel, each path with the counters reset
+   before and read after and held to its gate: ``core.kahan_sum`` (the
+   kernel ``kahan_sum``) bit-equal to its plain version on the card at
+   (4096, 4096) over axis 0 in both types, alone on (4096, 65536)
+   float32 (1 GiB) within the Neumaier bound of a float64 sum, and
+   ``axis=None`` of 2²⁰ float32 and ``kahan_dot`` of two 2²⁰ vectors
+   within that bound of ``math.fsum`` on the host, with the kernel's,
+   its plain version's and ``torch.sum``'s times; ``array``/``asarray``
+   of the headline's numpy float64 batch, ``tabulate`` of the 4096²
+   Hilbert matrix, ``zip_elems``, ``concat``/``stack``, ``reduce_elems``
+   (``torch.add`` and a ``torch.logaddexp`` fold), ``slice_elems`` with
+   negative steps and the ``NDArray`` wrapper, each against numpy;
+   ``math``'s sixteen names on a card tensor; ``io``'s ``.npy``,
+   ``istr`` and base64 round trips; ``parallel.batch_sharded`` of
+   ``entry.forward`` over ``make_mesh()`` (NCCL, world size 1) against
+   the unsharded call (``house_panel`` 4 each), and
+   ``entry.dryrun_multichip(1)``; each timed path's median and spread
+   over three runs. Its launches are added to the kernels' counts, and
+   ``kahan_sum`` joins the kernels line.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` object and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -101,28 +120,32 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import importlib
+import io as pyio
 import json
 import math
 import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-import nd4js_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-from nd4js_tpu_torch import la, opt, rand, utils
-from nd4js_tpu_torch.core import host
-from nd4js_tpu_torch.entry import entry
+import nd4js_tpu_torch as nd  # fails outside a checkout of the repo
+from nd4js_tpu_torch import io as tio, la, math as ndmath, opt, parallel, \
+    rand, utils
+from nd4js_tpu_torch.core import host, kahan
+from nd4js_tpu_torch.entry import dryrun_multichip, entry, \
+    forward as entry_forward
 from nd4js_tpu_torch.la import qr as qr_mod
 from nd4js_tpu_torch.la import sytrd as sytrd_mod, tridiag_dc
 from nd4js_tpu_torch.ops import _build, bulge_chase as bc, chol_leaf as cl, \
     house_panel as hp, house_stripe as hs, jacobi_sweep as js, \
-    lu_panel as lp, rrqr_kernel as rk, schur_small as ss, sytrd_panel as sp, \
-    trevc_solve as tv
+    kahan_sum as ks, lu_panel as lp, rrqr_kernel as rk, schur_small as ss, \
+    sytrd_panel as sp, trevc_solve as tv
 
 # the modules, which la's functions of the same names shadow as attributes
 eigh_mod = importlib.import_module("nd4js_tpu_torch.la.eigh")
@@ -153,7 +176,8 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 BACKWARD_MULT = 8
 KERNELS = ("house_panel", "qr_gesv", "house_stripe_t", "chol_leaf",
            "lu_panel", "lu_gesv", "sytrd_panel", "jacobi_sweeps",
-           "rrqr_kernel", "schur_small", "bulge_chase_steps", "trevc_solve")
+           "rrqr_kernel", "schur_small", "bulge_chase_steps", "trevc_solve",
+           "kahan_sum")
 # house_panel's shapes: the headline's four panels, the entry's (4, 128,
 # 128) and lstsq's pre-QR (1024, 128, 64)
 HOUSE_SHAPES = ((32, 512, 128), (32, 384, 128), (32, 256, 128),
@@ -1186,7 +1210,8 @@ KERNEL_OF = {"chol_leaf": "chol_leaf", "lu_panel": "lu_panel",
              "lu_gesv": "lu_gesv", "qr_gesv": "qr_gesv",
              "sytrd_panel": "sytrd_panel", "jacobi_sweeps": "jacobi_sweeps",
              "rrqr": "rrqr_kernel", "schur_small": "schur_small",
-             "bulge_chase": "bulge_chase_steps", "trevc_solve": "trevc_solve"}
+             "bulge_chase": "bulge_chase_steps", "trevc_solve": "trevc_solve",
+             "kahan_sum": "kahan_sum"}
 
 
 class LaunchLog:
@@ -1233,7 +1258,7 @@ def reset_counts() -> None:
     hp.launches = hs.launches = hs.stripe_launches = cl.launches = 0
     lp.launches.update(lu_panel=0, lu_gesv=0)
     sp.launches = js.launches = rk.launches = 0
-    ss.launches = bc.launches = tv.launches = 0
+    ss.launches = bc.launches = tv.launches = ks.launches = 0
     qr_mod.auto_branches.update(cholqr2=0, householder=0)
     svd_gram_mod.branches.update(exact=0, poly=0, finish=0, repair=0)
     schur_mod.branches.update(dict.fromkeys(schur_mod.branches, 0))
@@ -1248,7 +1273,7 @@ def read_counts() -> dict:
             "lu_gesv": lp.launches["lu_gesv"], "sytrd_panel": sp.launches,
             "jacobi_sweeps": js.launches, "rrqr_kernel": rk.launches,
             "schur_small": ss.launches, "bulge_chase_steps": bc.launches,
-            "trevc_solve": tv.launches}
+            "trevc_solve": tv.launches, "kahan_sum": ks.launches}
 
 
 def check_counts(what: str, got: dict, want: dict, totals: dict) -> None:
@@ -1409,8 +1434,9 @@ def phase3_paths(gen, totals):
     cfg5 = phase3_config5(totals)
 
     say(f"launches on the main path: {totals}")
-    check(all(c > 0 for c in totals.values()),
-          "every kernel of the path was launched")
+    check(all(c > 0 for k, c in totals.items() if k != "kahan_sum"),
+          "every kernel of the path was launched (kahan_sum's path is "
+          "phase 6)")
     return totals, (a, y), (a1, y1), cfg2, spd, eig, svd_in, geig, cfg5
 
 
@@ -3858,6 +3884,417 @@ def phase5(cfg5):
     return totals, wall, stats
 
 
+# ---- phase 6: the core surface, io and parallel --------------------------
+# kahan_sum against its plain version on the card (both types), alone on
+# 1 GiB of float32, and the 1-D sums
+KAHAN_CMP = (4096, 4096)
+KAHAN_BIG = (4096, 65536)
+KAHAN_1D = 2 ** 20
+HEADLINE = (32, 512, 512)
+# float32 ulps within which the math wrappers on the card stand to numpy on
+# the host: CUDA's expf, atan2f, hypotf and powf are within 2-3 ulps of the
+# correctly rounded result, the rest are exact
+MATH_ULPS = 8
+
+
+def spread(what: str, runs) -> list:
+    """Print a timed path's median and spread (max − min) in ms."""
+    say(f"{what}: median {float(np.median(runs)):.3f} ms, spread "
+        f"{max(runs) - min(runs):.3f} ms over {len(runs)} runs ("
+        + ", ".join(f"{r:.3f}" for r in runs) + ")")
+    return runs
+
+
+def kahan_cost(n: int, lanes: int, dtype):
+    """(flops, bytes) of one compensated sum of an (n, lanes) operand: four
+    adds an element; each input read once, each output written once."""
+    elem = torch.finfo(dtype).bits // 8
+    return 4 * n * lanes, elem * (n * lanes + lanes)
+
+
+def neumaier_gap(s, exact, abs_sum, n, dtype) -> float:
+    """The worst ratio of |ŝ − S| to the Neumaier bound
+    2·eps·|S| + n·eps²·Σ|x| (plus n·eps₆₄·Σ|x| for a float64 reference
+    sum's own rounding)."""
+    eps = torch.finfo(dtype).eps
+    bound = 2 * eps * exact.abs() + (n * eps ** 2 + n * 2.0 ** -52) * abs_sum
+    return float(((s.double() - exact).abs() / bound).max())
+
+
+def phase6_kahan(totals, walls):
+    """kahan_sum through core.kahan_sum: bit-equal to its plain version on
+    the card at (4096, 4096) over axis 0 in both types; alone on (4096,
+    65536) float32 (1 GiB) within the Neumaier bound of a float64 sum;
+    axis=None of 2²⁰ float32 within that bound of math.fsum on the host;
+    kahan_dot of two 2²⁰ vectors the same way. Returns the kernels line's
+    row."""
+    rng = np.random.default_rng(SEED + 60)
+    errs, other, main_ms = [], [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(rng.standard_normal(KAHAN_CMP)
+                             * 10.0 ** rng.uniform(-4, 4, KAHAN_CMP)) \
+            .to(DEVICE, dtype)
+        reset_counts()
+        got = kahan.kahan_sum(x, axis=0)
+        check_counts(f"kahan_sum {KAHAN_CMP} {dtype} over axis 0",
+                     read_counts(), {"kahan_sum": 1}, totals)
+        want = ks.kahan_sum_cols_ref(x)
+        check(torch.equal(got, want), f"kahan_sum {KAHAN_CMP} {dtype}: the "
+              "kernel bit-equal to its plain version on the card (the same "
+              "order)")
+        errs.append(maxabs(got - want))
+        t_bound, by = bound(*kahan_cost(*KAHAN_CMP, dtype))
+        ms = cuda_ms(lambda: ks.kahan_sum_cols(x), 10)
+        main_ms += ms
+        other.append({"shape": list(KAHAN_CMP), "dtype": str(dtype)[6:],
+                      "ms": ms, "plain_ms": cuda_ms(
+                          lambda: ks.kahan_sum_cols_ref(x), 1),
+                      "bound_ms": t_bound, "bound_by": by,
+                      "library_ms": cuda_ms(lambda: torch.sum(x, 0), 10)})
+        say(f"kahan_sum {KAHAN_CMP} {dtype}: kernel {ms:.4f} ms, plain "
+            f"{other[-1]['plain_ms']:.4f} ms, torch.sum "
+            f"{other[-1]['library_ms']:.4f} ms, bound {t_bound:.5f} ms ({by})")
+        del x, got, want
+    # alone on 1 GiB: entries over 7 decades with cancelling signs
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    x = torch.randn(KAHAN_BIG, generator=gen, device=DEVICE)
+    x *= torch.empty(KAHAN_BIG, device=DEVICE).uniform_(
+        -8.0, 8.0, generator=gen).exp_()
+    reset_counts()
+    s = kahan.kahan_sum(x, axis=0)
+    check_counts(f"kahan_sum {KAHAN_BIG} float32 over axis 0", read_counts(),
+                 {"kahan_sum": 1}, totals)
+    exact = torch.sum(x, 0, dtype=torch.float64)
+    abs_sum = x.abs().sum(0, dtype=torch.float64)
+    gap = neumaier_gap(s, exact, abs_sum, KAHAN_BIG[0], torch.float32)
+    plain_gap = neumaier_gap(torch.sum(x, 0), exact, abs_sum, KAHAN_BIG[0],
+                             torch.float32)
+    check(gap <= 1.0, f"kahan_sum {KAHAN_BIG} float32: within the Neumaier "
+          f"bound of a float64 sum, worst {gap:.3e} of it (torch.sum's "
+          f"float32 sum: worst {plain_gap:.3e})")
+    t_bound, by = bound(*kahan_cost(*KAHAN_BIG, torch.float32))
+    row = {"name": "kahan_sum", "route": "cuda",
+           "source": "nd4js_tpu_torch/csrc/kahan_sum.cu",
+           "replaces": "nd4js_tpu/core/kahan.py:26",
+           "replaces_note": "no Pallas counterpart: the XLA lax.scan at "
+                            "nd4js_tpu/core/kahan.py:26-48",
+           "max_abs_err": max(errs),
+           "ms": cuda_ms(lambda: ks.kahan_sum_cols(x), 10),
+           "plain_ms": cuda_ms(lambda: ks.kahan_sum_cols_ref(x), 1),
+           "bound_ms": t_bound, "bound_by": by,
+           "library_ms": cuda_ms(lambda: torch.sum(x, 0), 10),
+           "library_f64_ms": cuda_ms(
+               lambda: torch.sum(x, 0, dtype=torch.float64), 10),
+           "shape": list(KAHAN_BIG), "dtype": "float32",
+           "neumaier_gap": gap}
+    main_ms += row["ms"]
+    say(f"kahan_sum {KAHAN_BIG} float32: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.sum {row['library_ms']:.4f} ms, "
+        f"its float64 sum {row['library_f64_ms']:.4f} ms, bound "
+        f"{t_bound:.5f} ms ({by})")
+    del x, s, exact, abs_sum
+    # the 1-D sums: one thread's dependent chain
+    v = torch.from_numpy((rng.standard_normal(KAHAN_1D) * 10.0 ** rng.uniform(
+        -4, 4, KAHAN_1D)).astype(np.float32)).to(DEVICE)
+    w = torch.from_numpy(rng.standard_normal(KAHAN_1D).astype(np.float32)) \
+        .to(DEVICE)
+    for what, fn, terms in (
+            ("kahan_sum(axis=None) of 2^20 float32",
+             lambda: kahan.kahan_sum(v), v),
+            ("kahan_dot of two 2^20 float32 vectors",
+             lambda: kahan.kahan_dot(v, w), v * w)):
+        reset_counts()
+        got = fn()
+        check_counts(what, read_counts(), {"kahan_sum": 1}, totals)
+        host_terms = terms.double().cpu().numpy()
+        exact = torch.tensor(math.fsum(host_terms.tolist()),
+                             dtype=torch.float64)
+        gap = neumaier_gap(got.cpu(), exact,
+                           torch.tensor(np.abs(host_terms).sum()),
+                           KAHAN_1D, torch.float32)
+        check(gap <= 1.0, f"{what}: within the Neumaier bound of math.fsum "
+              f"on the host, worst {gap:.3e} of it")
+        runs = spread(f"{what} (kernel, one thread)",
+                      [cuda_ms(fn, 1) for _ in range(3)])
+        walls[what] = runs
+        main_ms += float(np.median(runs))
+    t_bound, by = bound(*kahan_cost(KAHAN_1D, 1, torch.float32))
+    other.append({"shape": [KAHAN_1D], "dtype": "float32",
+                  "ms": float(np.median(walls[
+                      "kahan_sum(axis=None) of 2^20 float32"])),
+                  "plain_ms": "not measured (2^20 dependent steps of about "
+                              "six launches each)",
+                  "bound_ms": t_bound, "bound_by": by,
+                  "library_ms": cuda_ms(lambda: torch.sum(v), 10)})
+    row["other_shapes"] = other
+    row["main_path_ms"] = main_ms
+    return row
+
+
+def phase6_arrays(totals, walls):
+    """array/asarray of the headline batch from numpy float64, tabulate of
+    the 4096² Hilbert matrix, zip_elems, concat/stack, reduce_elems,
+    slice_elems and the NDArray wrapper on the card, each against numpy on
+    the host; no kernel."""
+    rng = np.random.default_rng(SEED + 62)
+    host_a = rng.standard_normal(HEADLINE)
+    reset_counts()
+    a32, a64 = nd.array(host_a), nd.asarray(host_a)
+    check_counts("array/asarray (32, 512, 512)", read_counts(), {}, totals)
+    check(a32.dtype == torch.float32 and a32.device.type == torch.device(DEVICE).type
+          and np.array_equal(a32.cpu().numpy(), host_a.astype(np.float32)),
+          "array of the (32, 512, 512) numpy float64 batch: float32 on the "
+          "card, each entry the float32 rounding of the host's")
+    check(a64.dtype == torch.float64 and a64.device.type == torch.device(DEVICE).type
+          and np.array_equal(a64.cpu().numpy(), host_a),
+          "asarray of the same batch: float64 on the card, exact")
+    walls["array (32, 512, 512) from numpy float64"] = spread(
+        "array (32, 512, 512)", wall_ms(lambda: nd.array(host_a), 3, False))
+    walls["asarray (32, 512, 512) from numpy float64"] = spread(
+        "asarray (32, 512, 512)",
+        wall_ms(lambda: nd.asarray(host_a), 3, False))
+
+    def hilbert():
+        return nd.tabulate((4096, 4096), "float64",
+                           lambda i, j: 1 / (i + j + 1).to(torch.float64))
+    reset_counts()
+    h = hilbert()
+    check_counts("tabulate (4096, 4096)", read_counts(), {}, totals)
+    i, j = np.indices((4096, 4096))
+    check(h.dtype == torch.float64 and np.array_equal(h.cpu().numpy(),
+                                                      1.0 / (i + j + 1)),
+          "tabulate of the 4096² Hilbert matrix (float64): equal to numpy's")
+    walls["tabulate Hilbert (4096, 4096) float64"] = spread(
+        "tabulate Hilbert (4096, 4096) float64", wall_ms(hilbert, 3, False))
+    del h, i, j
+    parts = [rng.standard_normal(s).astype(np.float32)
+             for s in ((32, 512, 1), (1, 1, 512), (32, 1, 512))]
+    cards = [torch.from_numpy(p).to(DEVICE) for p in parts]
+    reset_counts()
+    z = nd.zip_elems(cards, lambda p, q, r: p * q + r)
+    check_counts("zip_elems", read_counts(), {}, totals)
+    want = parts[0] * parts[1] + parts[2]
+    # the product and the sum each rounded: equal where the two sides round
+    # alike, 2 ulps apart at most where one contracts them into an FMA
+    tol = 2 * np.finfo(np.float32).eps * (np.abs(parts[0] * parts[1])
+                                          + np.abs(parts[2]))
+    check(tuple(z.shape) == HEADLINE and bool(
+        (np.abs(z.cpu().numpy() - want) <= tol).all()),
+        "zip_elems (32, 512, 1) × (1, 1, 512) × (32, 1, 512), p·q + r: "
+        "within 2 ulps of numpy's")
+    walls["zip_elems (32, 512, 512)"] = spread(
+        "zip_elems (32, 512, 512)", wall_ms(
+            lambda: nd.zip_elems(cards, lambda p, q, r: p * q + r), 3, False))
+    mixed = [a32.to(torch.int32), a32, a64]
+    reset_counts()
+    cat, stk = nd.concat(mixed, 1), nd.stack(mixed)
+    check_counts("concat/stack", read_counts(), {}, totals)
+    host_mixed = [host_a.astype(np.float32).astype(np.int32),
+                  host_a.astype(np.float32), host_a]
+    check(cat.dtype == stk.dtype == torch.float64
+          and np.array_equal(cat.cpu().numpy(),
+                             np.concatenate(host_mixed, 1))
+          and np.array_equal(stk.cpu().numpy(), np.stack(host_mixed)),
+          "concat and stack of int32, float32 and float64 batches: "
+          "promoted to float64, equal to numpy's")
+    del cat, stk, mixed
+    reset_counts()
+    fast = nd.reduce_elems(a32, (1, 2), torch.add)
+    x64 = torch.from_numpy(rng.standard_normal((64, 512, 512))
+                           .astype(np.float32)).to(DEVICE)
+    lse = nd.reduce_elems(x64, 0, torch.logaddexp)
+    check_counts("reduce_elems", read_counts(), {}, totals)
+    eps = float(torch.finfo(torch.float32).eps)
+    fast_gap = float(((fast.double().cpu() - torch.from_numpy(
+        host_a.astype(np.float32)).double().sum((1, 2))).abs()
+        / (512 * 512 * eps * torch.from_numpy(np.abs(host_a)).sum((1, 2))))
+        .max())
+    ref = torch.logsumexp(x64.double(), 0)
+    lse_gap = float(((lse.double() - ref).abs() / (64 * 4 * eps * ref.abs()
+                                                  + 64 * eps)).max())
+    check(fast_gap <= 1.0 and lse_gap <= 1.0,
+          "reduce_elems: torch.add over (1, 2) of the batch within "
+          f"N·eps·Σ|x| of a float64 sum (worst {fast_gap:.3e} of it); a "
+          "fold of torch.logaddexp over a 64-long axis within "
+          f"64·(4·eps·|lse| + eps) of a float64 logsumexp ({lse_gap:.3e})")
+    walls["reduce_elems torch.add (32, 512, 512) over (1, 2)"] = spread(
+        "reduce_elems torch.add", wall_ms(
+            lambda: nd.reduce_elems(a32, (1, 2), torch.add), 3, False))
+    walls["reduce_elems torch.logaddexp over 64 of (64, 512, 512)"] = spread(
+        "reduce_elems torch.logaddexp", wall_ms(
+            lambda: nd.reduce_elems(x64, 0, torch.logaddexp), 3, False))
+    del x64, ref, lse
+    reset_counts()
+    sl = nd.slice_elems(a32, [None, None, -3], "...", [500, 3, -7], "new")
+    check_counts("slice_elems", read_counts(), {}, totals)
+    check(np.array_equal(sl.cpu().numpy(), host_a.astype(np.float32)[
+        ::-3, ..., 500:3:-7, None]),
+        "slice_elems with negative steps and 'new': equal to numpy's")
+    wa = nd.NDArray(a32)
+    reset_counts()
+    prod = wa @ wa
+    t, hh = wa.T, wa.H
+    mod = wa.set((0, 0, 0), 7.0).modify((1, 2), lambda r: r * 2)
+    total = wa.reduce_elems(None, torch.add)
+    rows = list(wa)
+    check_counts("NDArray", read_counts(), {}, totals)
+    check(torch.equal(prod.data, la.matmul2(a32, a32))
+          and torch.equal(t.data, a32.mT) and torch.equal(hh.data, a32.mT)
+          and float(mod(0, 0, 0)) == 7.0
+          and torch.equal(mod(1, 2), a32[1, 2] * 2)
+          and float(wa(0, 0, 0)) == float(a32[0, 0, 0])
+          and torch.equal(total, torch.sum(a32))
+          and len(rows) == 32 and torch.equal(rows[5].data, a32[5])
+          and torch.equal(torch.sum(wa), torch.sum(a32)),
+          "NDArray of the batch: @, .T, .H, set and modify out of place, "
+          "reduce_elems, iteration, torch functions unwrap it")
+    walls["NDArray @ (32, 512, 512)"] = spread(
+        "NDArray @ (32, 512, 512)", wall_ms(lambda: wa @ wa, 3, False))
+    return a32, host_a
+
+
+def phase6_math(totals, a32, host_a):
+    """Each of math's sixteen names on a card tensor against numpy on the
+    host, within MATH_ULPS float32 ulps (is_close exactly)."""
+    x = a32[0]
+    hx = host_a[0].astype(np.float32)
+    y = a32[1].abs() + 0.5
+    hy = np.abs(host_a[1].astype(np.float32)) + np.float32(0.5)
+    cases = {
+        "add": ((x, y), hx + hy), "sub": ((x, y), hx - hy),
+        "mul": ((x, y), hx * hy), "div": ((x, y), hx / hy),
+        "neg": ((x,), -hx), "abs": ((x,), np.abs(hx)),
+        "sqrt": ((y,), np.sqrt(hy)), "exp": ((x,), np.exp(hx)),
+        "conj": ((x,), np.conj(hx)),
+        "cbrt": ((x,), np.cbrt(hx.astype(np.float64)).astype(np.float32)),
+        "atan2": ((x, y), np.arctan2(hx, hy)),
+        "hypot": ((x, y), np.hypot(hx, hy)), "sign": ((x,), np.sign(hx)),
+        "min": ((x, y), np.minimum(hx, hy)),
+        "max": ((x, y), np.maximum(hx, hy)),
+        "is_close": ((x, x + 1e-3 * (x > 0)),
+                     np.isclose(hx, hx + np.float32(1e-3) * (hx > 0),
+                                rtol=1e-5, atol=1e-8))}
+    reset_counts()
+    for name, (args, want) in cases.items():
+        got = getattr(ndmath, name)(*args).cpu().numpy()
+        if name == "is_close":
+            check(np.array_equal(got, want), "math.is_close on the card: "
+                  "equal to numpy's isclose with the same defaults")
+            continue
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        worst = float((np.abs(got - want) / ulp).max())
+        check(got.dtype == np.float32 and worst <= MATH_ULPS,
+              f"math.{name} on the card: within {MATH_ULPS} float32 ulps of "
+              f"numpy ({worst:.1f})")
+    check_counts("math", read_counts(), {}, totals)
+
+
+def phase6_io(totals, walls, a32):
+    """npy bytes, save_npy/load_npy through a temporary file, istr and b64
+    of card tensors: each bit-exact after the round trip, the .npy also
+    read by np.load."""
+    f64 = a32[0].double() * 3.7
+    reset_counts()
+    raw = tio.npy_serialize(a32)
+    back = tio.npy_deserialize(raw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "batch.npy")
+        tio.save_npy(path, a32)
+        loaded = tio.load_npy(path)
+        from_np = np.load(path)
+    text = tio.istr_stringify(f64)
+    parsed = tio.istr_parse(text)
+    b64 = tio.b64_encode(f64)
+    decoded = tio.b64_decode(b64, torch.float64, (512, 512))
+    check_counts("io", read_counts(), {}, totals)
+    host = a32.cpu().numpy()
+    check(back.device.type == loaded.device.type
+          == torch.device(DEVICE).type
+          and back.cpu().numpy().tobytes() == host.tobytes()
+          and loaded.cpu().numpy().tobytes() == host.tobytes()
+          and np.load(pyio.BytesIO(raw)).tobytes() == host.tobytes()
+          and from_np.tobytes() == host.tobytes(),
+          "npy bytes and save_npy/load_npy of the (32, 512, 512) float32 "
+          "batch: bit-exact round trips onto the card, np.load reads them")
+    check(parsed.dtype == decoded.dtype == torch.float64
+          and torch.equal(parsed, f64) and torch.equal(decoded, f64)
+          and text.startswith("float64[512,512]\n"),
+          "istr and b64 of a (512, 512) float64 matrix: bit-exact")
+    walls["npy_serialize (32, 512, 512) float32"] = spread(
+        "npy_serialize (32, 512, 512)",
+        wall_ms(lambda: tio.npy_serialize(a32), 3, False))
+    walls["npy_deserialize (32, 512, 512) float32"] = spread(
+        "npy_deserialize (32, 512, 512)",
+        wall_ms(lambda: tio.npy_deserialize(raw), 3, False))
+    walls["istr_stringify + istr_parse (512, 512) float64"] = spread(
+        "istr round trip (512, 512)", wall_ms(
+            lambda: tio.istr_parse(tio.istr_stringify(f64)), 3, False))
+
+
+def phase6_parallel(totals, walls, gen):
+    """make_mesh over the one card (NCCL, world size 1), batch_sharded of
+    entry.forward on the headline batch against the unsharded call, and
+    dryrun_multichip(1) on the card."""
+    import torch.distributed as dist
+    a = torch.randn(HEADLINE, generator=gen).to(DEVICE)
+    y = torch.randn((32, 512, 1), generator=gen).to(DEVICE)
+    reset_counts()
+    mesh = parallel.make_mesh()
+    sharded = parallel.batch_sharded(entry_forward, mesh)
+    x, resid = sharded(a, y)
+    got = read_counts()
+    say(f"batch_sharded(entry.forward) over make_mesh() ({dist.get_backend()}"
+        f", world size {dist.get_world_size()}): house_panel launched "
+        f"{got['house_panel']} times")
+    check_counts("batch_sharded(entry.forward)", got,
+                 {"house_panel": HEADLINE[-1] // 128}, totals)
+    reset_counts()
+    x_ref, resid_ref = entry_forward(a, y)
+    check_counts("entry.forward unsharded", read_counts(),
+                 {"house_panel": HEADLINE[-1] // 128}, totals)
+    check(dist.get_backend() == parallel.mesh._BACKEND[
+              torch.device(DEVICE).type]
+          and tuple(x.full_tensor().shape) == (32, 512, 1)
+          and torch.equal(x.full_tensor(), x_ref)
+          and torch.equal(resid.full_tensor(), resid_ref),
+          "batch_sharded(entry.forward, make_mesh()) on the headline batch: "
+          "NCCL, equal to the unsharded call")
+    walls["batch_sharded(entry.forward) (32, 512, 512)"] = spread(
+        "batch_sharded(entry.forward)", wall_ms(lambda: sharded(a, y), 3))
+    walls["entry.forward unsharded (32, 512, 512)"] = spread(
+        "entry.forward unsharded", wall_ms(lambda: entry_forward(a, y), 3,
+                                           False))
+    reset_counts()
+    dryrun_multichip(1)
+    got = read_counts()
+    check(got["house_panel"] > 0 and got["lu_panel"] > 0
+          and got["jacobi_sweeps"] + got["sytrd_panel"] > 0,
+          f"dryrun_multichip(1) on the card (NCCL): sharded against "
+          f"replicated within 1e-4; launches {got}")
+    for k, v in got.items():
+        totals[k] += v
+    dist.destroy_process_group()
+
+
+def phase6(gen):
+    """The core surface, io and parallel, each path with the counters reset
+    before and read after. Returns (launches by kernel, kahan_sum's row,
+    walls)."""
+    totals = dict.fromkeys(KERNELS, 0)
+    walls = {}
+    t0 = time.perf_counter()
+    row = phase6_kahan(totals, walls)
+    a32, host_a = phase6_arrays(totals, walls)
+    phase6_math(totals, a32, host_a)
+    phase6_io(totals, walls, a32)
+    phase6_parallel(totals, walls, gen)
+    row["launches"] = totals["kahan_sum"]
+    check(totals["kahan_sum"] > 0, "kahan_sum was launched on phase 6's "
+          f"paths: {totals['kahan_sum']} launches")
+    say(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    return totals, row, walls
+
+
 def main():
     signal.signal(signal.SIGALRM, _on_deadline)
     signal.alarm(DEADLINE_S)
@@ -3881,10 +4318,14 @@ def main():
                             svd_in, geig, cfg5)
     with phase("5 the rest of opt and utils"):
         more, wall5, stats5 = phase5(cfg5)
+    with phase("6 core surface, io and parallel"):
+        more6, kahan_row, wall6 = phase6(gen)
     for row in rows:
-        row["launches"] += more[row["name"]]
+        row["launches"] += more[row["name"]] + more6[row["name"]]
         row["launches_opt_utils"] = more[row["name"]]
-    wall |= wall5
+        row["launches_core_surface"] = more6[row["name"]]
+    rows.append(kahan_row)
+    wall |= wall5 | wall6
     say("phase 5 stats: " + json.dumps(stats5))
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()

@@ -44,13 +44,45 @@ whose tall inputs go through ``house_panel``; ``la.bidiag_decomp``; LDLᵀ
 and Bunch-Kaufman (``la.ldl_decomp``, ``la.pldlp_decomp`` and their
 solves and factors); ``la.norm``, the n-ary ``la.matmul``, ``la.eye``,
 ``la.diag``, ``la.diag_mat`` and ``la.transpose_inplace``; and ``rand``
-(``RNG``, ``rand_normal``, ``rand_ortho``).
+(``RNG``, ``rand_normal``, ``rand_ortho``); and the core surface: array
+creation and elementwise maps (``array``, ``asarray``, ``tabulate``,
+``zip_elems``, ``concat``, ``stack``, ``map_elems``, ``reduce_elems``,
+``slice_elems``, with ``device=`` for host data), compensated sums
+(``core.kahan_sum``, ``kahan_dot``, ``two_sum``) with the kernel
+``kahan_sum``, the ``NDArray`` wrapper, ``math``, ``help``, ``io``
+(``.npy``, base64, ``istr``, PyON) and ``parallel`` (``make_mesh``,
+``shard_batch``, ``batch_sharded`` on ``torch.distributed``), with
+``entry.dryrun_multichip`` as its dry run. Every public name of the JAX
+package has its counterpart here.
 """
 from . import config, dt
+from . import math
+from .core import (array, asarray, tabulate, zip_elems, concat, stack,
+                   map_elems, reduce_elems, slice_elems)
 from . import la
 from . import opt
 from . import rand
+from . import io
 from . import utils
+from . import parallel
+from .utils import (linspace, cartesian_prod, KDTree, odeint_rk4,
+                    regular_simplex)
+from .core.wrapper import NDArray, wrap
+from .help import help
 from . import entry
 
+# flat namespace aliases, as in the JAX package
+iter = utils.iter
+spatial = utils.spatial
+geom = utils.geom
+integrate = utils.integrate
+arrays = utils.arrays
+
 __version__ = "0.1.0"
+
+__all__ = ["config", "dt", "math", "array", "asarray", "tabulate",
+           "zip_elems", "concat", "stack", "map_elems", "reduce_elems",
+           "slice_elems", "la", "opt", "rand", "io", "utils", "parallel",
+           "linspace", "cartesian_prod", "KDTree", "odeint_rk4",
+           "regular_simplex", "NDArray", "wrap", "help", "entry", "iter",
+           "spatial", "geom", "integrate", "arrays", "__version__"]

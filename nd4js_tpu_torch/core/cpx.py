@@ -14,7 +14,8 @@ import torch
 from .mm import mm
 
 __all__ = ["cpx", "add", "sub", "mul", "div", "conj", "abs2", "cabs",
-           "matmul", "scale", "where", "to_complex", "from_complex"]
+           "matmul", "scale", "where", "to_complex", "from_complex",
+           "sqrt_of_real"]
 
 
 def cpx(re, im=None):
@@ -95,3 +96,13 @@ def from_complex(z):
     z = torch.as_tensor(z)
     return z.real, z.imag
 
+
+
+def sqrt_of_real(x):
+    """Complex square root of a *real* tensor as a pair: (√x, 0) where
+    x ≥ 0, (0, √−x) elsewhere."""
+    x = torch.as_tensor(x)
+    pos = x >= 0
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return (torch.sqrt(torch.where(pos, x, zero)),
+            torch.sqrt(torch.where(pos, zero, -x)))

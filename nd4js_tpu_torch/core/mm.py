@@ -11,7 +11,7 @@ import torch
 
 from .. import config  # noqa: F401  (imported for its precision pin)
 
-__all__ = ["mm", "mt"]
+__all__ = ["mm", "mt", "einsum"]
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -22,3 +22,8 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mt(a: torch.Tensor) -> torch.Tensor:
     """Transpose of the trailing two axes (no conjugation)."""
     return a.transpose(-1, -2)
+
+
+def einsum(subscripts: str, *operands) -> torch.Tensor:
+    """``torch.einsum`` at the library's pinned precision (no TF32)."""
+    return torch.einsum(subscripts, *operands)

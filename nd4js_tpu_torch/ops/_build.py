@@ -75,6 +75,8 @@ _SIGNATURES = {
     "nd4js_bulge_chase_f64": (_I, [_P] * 5 + [_I] * 12 + [_S, _P]),
     "nd4js_trevc_solve_f32": (_I, [_P] * 8 + [_I] * 4 + [_D, _I, _P]),
     "nd4js_trevc_solve_f64": (_I, [_P] * 8 + [_I] * 4 + [_D, _I, _P]),
+    "nd4js_kahan_sum_f32": (_I, [_P, _P, _I, _I, _P]),
+    "nd4js_kahan_sum_f64": (_I, [_P, _P, _I, _I, _P]),
 }
 
 _built = None

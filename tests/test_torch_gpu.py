@@ -41,7 +41,10 @@ general eigen slice under bench.py's config 4 gate; ``chol_leaf`` at config
 in float64 within 1e-8 of the CPU port's; config 5 under bench.py's
 gate; L-BFGS-B's Cauchy point and subspace step within 1e-12 and its steps
 (the direction replayed as a CUDA graph) within 1e-10 of the CPU port's;
-and ``KDTree.nearest``'s indices equal to the CPU's, ties included.
+and ``KDTree.nearest``'s indices equal to the CPU's, ties included;
+``kahan_sum``'s kernel bit-equal to its plain version (the same order of
+adds, each rounded alone), NaN and ±inf lanes included, and ``io`` of a
+card tensor byte-identical to that of its host copy.
 """
 import importlib
 
@@ -1616,3 +1619,82 @@ def test_lstsq_of_a_tall_matrix_on_the_card_matches_the_cpu(cuda, dtype):
     eps = torch.finfo(dtype).eps
     assert float((got.cpu() - want).abs().max()) \
         <= 1e3 * eps * float(want.abs().max())
+
+
+# ------------------------------------------------- core surface and io
+
+def _hard_sum(rng, shape):
+    """Entries over 16 decades with cancelling signs."""
+    return rng.standard_normal(shape) * 10.0 ** rng.uniform(-8, 8, shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,axis", [((300, 1000), 0), ((5000,), None),
+                                        ((7, 64, 33), 1), ((40, 3), -1)])
+def test_kahan_sum_kernel_is_bit_equal_to_its_plain_version(cuda, dtype,
+                                                            shape, axis):
+    """The kernel and its plain version run the same recurrence in the
+    same order with every add rounded alone: bit-equal, NaN and ±inf
+    lanes included; one launch a call."""
+    from nd4js_tpu_torch.core import kahan
+    from nd4js_tpu_torch.ops import kahan_sum as ks
+    x = _hard_sum(np.random.default_rng(sum(shape)), shape)
+    x.reshape(-1)[:4] = [np.inf, np.nan, -np.inf, 1.0]
+    want = kahan.kahan_sum(torch.from_numpy(x).to(dtype), axis=axis)
+    before = ks.launches
+    got = kahan.kahan_sum(_on(cuda, x, dtype), axis=axis)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert torch.equal(got.isnan().cpu(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got.cpu()[fin], want[fin])
+
+
+def test_kahan_sum_on_the_card_refuses_other_types_and_skips_empty(cuda):
+    from nd4js_tpu_torch.core import kahan
+    from nd4js_tpu_torch.ops import kahan_sum as ks
+    with pytest.raises(TypeError):
+        kahan.kahan_sum(torch.arange(5, device=cuda))
+    before = ks.launches
+    out = kahan.kahan_sum(torch.zeros(0, 4, device=cuda), axis=0)
+    assert ks.launches == before and torch.equal(out.cpu(), torch.zeros(4))
+
+
+@pytest.mark.parametrize("fmt", ["npy", "b64", "istr"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.int32, torch.bool])
+def test_io_of_a_card_tensor_round_trips_bit_exact(cuda, fmt, dtype):
+    """Serializing a card tensor gives the bytes of its host copy; the
+    deserializers put the result on the card by default."""
+    from nd4js_tpu_torch import io as tio
+    host = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (6, 5)) * 100).to(dtype)
+    card = host.to(cuda)
+    if fmt == "npy":
+        text = tio.npy_serialize(card)
+        assert text == tio.npy_serialize(host)
+        back = tio.npy_deserialize(text)
+    elif fmt == "b64":
+        text = tio.b64_encode(card)
+        assert text == tio.b64_encode(host)
+        back = tio.b64_decode(text, dtype, (6, 5))
+    else:
+        text = tio.istr_stringify(card)
+        assert text == tio.istr_stringify(host)
+        back = tio.istr_parse(text)
+    assert back.device.type == "cuda" and back.dtype == dtype
+    assert back.cpu().numpy().tobytes() == host.numpy().tobytes()
+
+
+def test_array_creation_lands_on_the_card(cuda):
+    import nd4js_tpu_torch as nd
+    a = nd.array(np.arange(6.0).reshape(2, 3))
+    assert a.device.type == "cuda" and a.dtype == torch.float32
+    h = nd.tabulate((64, 64), "float64", lambda i, j: 1 / (i + j + 1).double())
+    i, j = np.indices((64, 64))
+    assert h.device.type == "cuda"
+    assert np.array_equal(h.cpu().numpy(), 1 / (i + j + 1))
+    w = nd.NDArray(np.eye(3))
+    assert (w @ w).data.device.type == "cuda"
+    assert np.array_equal(np.asarray(w), np.eye(3, dtype=np.float64))

@@ -111,36 +111,92 @@ def test_the_rest_of_opt_and_utils_are_among_those_checked():
             "utils/integrate", "utils/arrays"} <= found
 
 
-@pytest.mark.parametrize("pkg", ["opt", "utils"])
-def test_every_name_the_jax_package_exports_is_in_the_port(pkg):
-    """Every name that ``nd4js_tpu/<pkg>/__init__.py`` imports, its
-    submodules ``line_search`` and ``test_fn`` included, is in the port's
-    ``__all__``, and the port's ``__all__`` names only what it has."""
+# the core surface's modules (and the top level, "top"), beside opt and
+# utils, whose names the port must cover
+SURFACE = ["core", "io", "parallel", "math", "help", "core.kahan",
+           "core.ndarray", "core.wrapper", "core.mm", "core.cpx", "top"]
+
+
+def _module(prefix, pkg):
     import importlib
-    tree = ast.parse((ROOT / "nd4js_tpu" / pkg / "__init__.py").read_text())
-    names = {a.asname or a.name for node in ast.walk(tree)
-             if isinstance(node, ast.ImportFrom) and node.level == 1
-             for a in node.names}
-    port = importlib.import_module(f"nd4js_tpu_torch.{pkg}")
+    return importlib.import_module(prefix if pkg == "top"
+                                   else f"{prefix}.{pkg}")
+
+
+def _bound_names(pkg):
+    """The names a module of the JAX package binds at its top: what a
+    package's ``__init__`` imports from its own package, what it assigns
+    (``__version__`` included) and what its ``__all__`` lists; private
+    names aside (a plain module's own imports are its helpers)."""
+    rel = Path(*pkg.split("."))
+    path = ROOT / "nd4js_tpu" / "__init__.py" if pkg == "top" else \
+        ROOT / "nd4js_tpu" / rel / "__init__.py"
+    names = set()
+    if path.exists():
+        names = {a.asname or a.name for node in ast.walk(ast.parse(
+            path.read_text())) if isinstance(node, ast.ImportFrom)
+            and node.level == 1 for a in node.names}
+    else:
+        path = (ROOT / "nd4js_tpu" / rel).with_suffix(".py")
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name) and target.id == "__all__":
+                    names |= set(ast.literal_eval(node.value))
+                elif isinstance(target, ast.Name):
+                    names.add(target.id)
+    return {n for n in names if not n.startswith("_") or n == "__version__"}
+
+
+@pytest.mark.parametrize("pkg", ["opt", "utils"] + SURFACE)
+def test_every_name_the_jax_package_exports_is_in_the_port(pkg):
+    """Every name that ``nd4js_tpu/<pkg>/__init__.py`` (or ``<pkg>.py``)
+    imports, assigns or lists in ``__all__``, the submodules
+    ``line_search`` and ``test_fn`` of ``opt`` included, is in the port's
+    ``__all__``, and the port's ``__all__`` names only what it has; "top"
+    is ``nd4js_tpu/__init__.py``, every name it binds."""
+    names = _bound_names(pkg)
+    port = _module("nd4js_tpu_torch", pkg)
     assert names, pkg
     assert names <= set(port.__all__), sorted(names - set(port.__all__))
     assert all(hasattr(port, n) for n in port.__all__)
 
 
-@pytest.mark.parametrize("pkg", ["la", "rand", "opt", "utils"])
+@pytest.mark.parametrize("pkg", ["la", "rand", "opt", "utils"] + SURFACE)
 def test_every_public_name_of_the_jax_package_is_in_the_port(pkg):
     """Every public function and class of ``nd4js_tpu.la``,
     ``nd4js_tpu.rand``, ``nd4js_tpu.opt`` and ``nd4js_tpu.utils`` (their
-    submodules aside) is in the port's, listed in its ``__all__``."""
-    import importlib
+    submodules aside) is in the port's, listed in its ``__all__``; for the
+    core surface's modules every name of their ``__all__`` (their
+    ``dir()`` also lists typing helpers and ``annotations``), and for the
+    top level every public name that is not a module. A name callable in
+    the JAX package is callable in the port, and a value is a value."""
     import types
-    ref = importlib.import_module(f"nd4js_tpu.{pkg}")
-    port = importlib.import_module(f"nd4js_tpu_torch.{pkg}")
-    names = {n for n in dir(ref) if not n.startswith("_")
-             and not isinstance(getattr(ref, n), types.ModuleType)}
+    ref = _module("nd4js_tpu", pkg)
+    port = _module("nd4js_tpu_torch", pkg)
+    if pkg in SURFACE and hasattr(ref, "__all__"):
+        names = set(ref.__all__)
+    else:
+        names = {n for n in dir(ref) if not n.startswith("_")
+                 and not isinstance(getattr(ref, n), types.ModuleType)}
     assert names, pkg
     assert names <= set(port.__all__), sorted(names - set(port.__all__))
-    assert all(callable(getattr(port, n)) for n in names)
+    assert all(callable(getattr(port, n)) == callable(getattr(ref, n))
+               for n in names)
+
+
+def test_the_core_surface_modules_and_kernel_are_among_those_checked():
+    """The core surface's modules are found by the walk above, so they
+    too import without JAX, and ``kahan_sum``'s kernel source by the
+    source scans below."""
+    found = {p.relative_to(PKG).with_suffix("").as_posix()
+             for p in PKG.rglob("*.py")}
+    assert {"core/kahan", "core/ndarray", "core/wrapper", "math", "help",
+            "io/__init__", "io/npy", "io/b64", "io/istr", "io/pyon",
+            "parallel/__init__", "parallel/mesh", "ops/kahan_sum",
+            "entry"} <= found
+    assert (PKG / "csrc" / "kahan_sum.cu").exists()
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
